@@ -1,0 +1,5 @@
+"""Single-token GQA decode attention: CUDA kernel, wrapper, plain version."""
+from .ops import decode_attention
+from .ref import decode_attention_ref
+
+__all__ = ["decode_attention", "decode_attention_ref"]
