@@ -3,23 +3,32 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  Phases, each raising on its first fault
-(the script exits 0 only if every phase passed):
+Run from the root of a checkout.  It runs every phase, each raising on its
+first fault (the script exits 0 only if every phase passed):
 
   1. build   compile every CUDA kernel of the port from its ``csrc/``
              sources, one nvcc per kernel, all started together.
   2. kernels hold each kernel against its plain PyTorch version on the card,
              in float32 and bfloat16, at the serving shapes and around
-             them; time the kernel, the plain version and
-             ``scaled_dot_product_attention`` (a yardstick the port never
-             calls) from CUDA-graph replays.
-  3. serve   full-width qwen2-0.5b with random weights from a seed:
-             ``measure_cost_model``, then ``PreemptiveServingEngine`` with
-             4 slices x 4 units serving 24 requests in a 2:1 HP:LP mix.
-             Checks every HP request done, every done LP request holding
-             its tokens, both kernels launched; then holds the card's
-             prefill and decode logits for one prompt against the plain
-             path on the CPU.
+             them; time the kernel, the plain version and a library call
+             where one exists (``scaled_dot_product_attention`` for the
+             attention kernels, a cuDNN ``conv2d`` chain for the halo conv
+             block; yardsticks the port never calls) from CUDA-graph
+             replays.  The halo conv block runs at YoloV2's widths and is
+             also checked for tiling invariance (its standalone phase).
+  3. serve   for each served model with random weights from seed 0 (full
+             width; qwen2-0.5b, then xlstm-1.3b): ``measure_cost_model``,
+             then ``PreemptiveServingEngine`` with 4 slices x 4 units
+             serving 24 requests in a 2:1 HP:LP mix.  Checks every HP
+             request done, every done LP request holding its tokens, and
+             each kernel of the model launched exactly once per layer per
+             prefill or decode token; then holds the card's prefill and
+             decode logits against the plain path (qwen2: the CPU; xLSTM:
+             the full model with the sLSTM plain version swapped in on the
+             card, and one full-width superblock on the CPU).  Before the
+             engine run it times one prefill and one decode step by CUDA-graph
+             replay and records one of each under ``torch.profiler``,
+             printing the kernels that take the most device time.
 
 The last lines are the card's name and power limit, one JSON object
 describing each kernel, and ``{"ok": true, "device": {...}}``.  Without a
@@ -27,12 +36,17 @@ CUDA device the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import torch
+import torch.nn.functional as F
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
 from repro_torch.core.task import Priority
@@ -41,7 +55,15 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
+from repro_torch.kernels.halo_conv2d import (conv_block_ref,
+                                             halo_conv_block,
+                                             halo_conv_block_tiles,
+                                             halo_conv_block_tiles_ref)
+from repro_torch.kernels.halo_conv2d.ops import _extract_tiles
+from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_ref
 from repro_torch.models import model as M
+from repro_torch.models.config import StageDef
+from repro_torch.models.layers import xlstm as X
 from repro_torch.serving.cost_model import measure_cost_model
 from repro_torch.serving.engine import (PreemptiveServingEngine,
                                         ServeRequest, engine_network_config)
@@ -54,12 +76,24 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # Tolerances of the repo's kernel tests (tests/test_kernels.py TOLS): f32
 # differs only in summation order; bf16 outputs round to 8 mantissa bits.
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# Full-width logits, card vs CPU: 24 f32 layers whose matrix products sum
+# Halo conv block against the cuDNN block on the whole image, relative to
+# the output's largest magnitude: the reference's own 1e-4
+# (tests/test_kernels.py) in f32, 8 mantissa bits in bf16, where cuDNN
+# rounds between layers.  Against its plain version, which like the kernel
+# sums in f32 and rounds once, the kernel holds to f32 summation order
+# (HALO_F32_TOL x max|y|) plus, in bf16, that one rounding (half an ulp,
+# at most 2^-8 |y|, of each element).  Tiling invariance is exact.
+HALO_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+HALO_F32_TOL = 1e-5
+HALO_ROUND = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8}
+# Full-width logits, card vs CPU: f32 layers whose matrix products sum
 # in another order in cuBLAS than in the CPU's BLAS.
 LOGIT_TOL = 2e-4
 
-ARCH = "qwen2-0.5b"
+ARCHS = ("qwen2-0.5b", "xlstm-1.3b")
+XLSTM_PARAMS = 3_503_728_976          # leaves of the JAX xlstm-1.3b tree
 B, H, KV, D = 1, 14, 2, 64            # qwen2-0.5b attention at batch 1
+SH, SDH = 4, 512                      # xlstm-1.3b sLSTM heads, head dim
 CACHE_LEN = 256                       # the engine's default
 PROMPT_LEN = 16                       # as examples/preemptive_serving.py
 LP_TOKENS = 24
@@ -217,14 +251,17 @@ def phase_kernels() -> dict:
             if t == PROMPT_LEN and dtype == torch.float32:
                 rows["flash_attention"] = dict(FLASH_ROW, max_abs_err=err,
                                                **timing)
+    rows["slstm_scan"] = _slstm_cases(gen)
+    rows["halo_conv2d"] = _halo_cases(gen)
     return rows
 
 
 def _report(name: str, label: str, dtype, ms: float, plain: float,
-            lib: float, n_bytes: int, flops: float) -> dict:
+            lib: float | None, n_bytes: int, flops: float) -> dict:
     bms, by = bound_ms(n_bytes, flops, dtype)
+    lib_s = "none" if lib is None else f"{lib:.5f}"
     print(f"[kernels] {name} {label} {str(dtype)[6:]}: kernel_ms={ms:.5f} "
-          f"plain_ms={plain:.5f} library_ms={lib:.5f} bound_ms={bms:.6f} "
+          f"plain_ms={plain:.5f} library_ms={lib_s} bound_ms={bms:.6f} "
           f"({by})")
     return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
             "bound_by": by}
@@ -275,33 +312,234 @@ def _time_flash(label: str, args, causal: bool, window: int) -> dict:
                    n_bytes, 4.0 * H * D * n_pairs)
 
 
+SLSTM_ROW = {"name": "slstm_scan", "route": "cuda",
+             "source": "repro_torch/kernels/slstm_scan/csrc/slstm_scan.cu",
+             "replaces": "src/repro/kernels/slstm_scan/kernel.py:71"}
+HALO_ROW = {"name": "halo_conv2d", "route": "cuda",
+            "source": "repro_torch/kernels/halo_conv2d/csrc/halo_conv2d.cu",
+            "replaces": "src/repro/kernels/halo_conv2d/kernel.py:48",
+            "standalone": True}
+
+
+def _slstm_inputs(b: int, t: int, with_state: bool, dtype, gen) -> tuple:
+    """wx [B,T,4,H,dh], R, bias (forget gate +3 as the model's init) and,
+    with_state, a carry from 16 earlier steps of the plain version."""
+    wx = 0.5 * torch.randn((b, t, 4, SH, SDH), generator=gen, device="cuda")
+    r = SDH ** -0.5 * torch.randn((4, SH, SDH, SDH), generator=gen,
+                                  device="cuda")
+    bias = 0.1 * torch.randn((4, SH, SDH), generator=gen, device="cuda")
+    bias[1] += 3.0
+    wx, r = wx.to(dtype), r.to(dtype)
+    state = None
+    if with_state:
+        warm = (0.5 * torch.randn((b, 16, 4, SH, SDH), generator=gen,
+                                  device="cuda")).to(dtype)
+        state = slstm_scan_ref(warm, r, bias)[1]
+    return wx, r, bias, state
+
+
+def _slstm_cases(gen) -> dict:
+    """Serving shapes of xlstm-1.3b's sLSTM (B=1, H=4, dh=512): a 16-token
+    prompt from the zero state and one decode step from a carried state;
+    then a ragged T and a longer batch.  Hidden states and the final state
+    are both held against the plain version."""
+    cases = [("B=1 T=16 zero state (prefill, main path)", 1, 16, False),
+             ("B=1 T=1 carried state (decode)", 1, 1, True),
+             ("B=1 T=37 carried state", 1, 37, True),
+             ("B=2 T=128 zero state", 2, 128, False)]
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (label, b, t, with_state) in enumerate(cases):
+            wx, r, bias, state = _slstm_inputs(b, t, with_state, dtype, gen)
+            want_hs, want_st = slstm_scan_ref(wx, r, bias, state)
+            got_hs, got_st = slstm_scan(wx, r, bias, state)
+            err = _check("slstm_scan", label + " hs", got_hs, want_hs, dtype)
+            for name, g, w in zip("hcnm", got_st, want_st):
+                err = max(err, _check("slstm_scan", f"{label} final {name}",
+                                      g, w, dtype))
+            calls = 50 if t <= 16 else 5
+            ms = device_ms(lambda: slstm_scan(wx, r, bias, state),
+                           calls=calls)
+            plain = device_ms(lambda: slstm_scan_ref(wx, r, bias, state),
+                              calls=calls)
+            st_bytes = _nbytes(*want_st) * (2 if state is not None else 1)
+            n_bytes = _nbytes(wx, r, bias, want_hs) + st_bytes
+            # the product's multiply-adds, plus about 20 operations of
+            # gating per state element and step
+            flops = 2.0 * b * t * 4 * SH * SDH * SDH + 20.0 * b * t * SH * SDH
+            timing = _report("slstm_scan", label, dtype, ms, plain, None,
+                             n_bytes, flops)
+            if i == 0 and dtype == torch.float32:
+                row = dict(SLSTM_ROW, max_abs_err=err, **timing)
+    return row
+
+
+def _halo_inputs(hw: int, ch: int, n_layers: int, dtype, gen) -> tuple:
+    x = torch.randn((1, hw, hw, ch), generator=gen, device="cuda")
+    ws = [(2.0 / (9 * ch)) ** 0.5 * torch.randn((3, 3, ch, ch),
+                                                 generator=gen,
+                                                 device="cuda")
+          for _ in range(n_layers)]
+    return x.to(dtype), [w.to(dtype) for w in ws]
+
+
+def _halo_tiles_check(label: str, got, tl, ws, dtype) -> float:
+    """The kernel against its plain version in f32 (before the final cast):
+    equal up to f32 summation order and, in bf16, one rounding."""
+    torch.cuda.synchronize()
+    want = halo_conv_block_tiles_ref(tl.float(), [w.float() for w in ws])
+    err = (got.float() - want).abs()
+    limit = HALO_F32_TOL * max(1.0, want.abs().max().item()) + \
+        HALO_ROUND[dtype] * want.abs()
+    same = torch.equal(got, want.to(dtype))
+    print(f"[kernels] halo_conv2d {label} tiles vs plain {str(dtype)[6:]}: "
+          f"max_abs_err={err.max().item():.3g} against the f32 plain result "
+          f"(tol {HALO_F32_TOL:g} x max(1, max|y|) + {HALO_ROUND[dtype]:g} "
+          f"x |y|); {'bit-identical' if same else 'not bit-identical'} to "
+          f"the plain version")
+    if not torch.isfinite(got).all() or (err > limit).any():
+        raise AssertionError(f"halo_conv2d {label}: kernel differs from its "
+                             "plain version beyond f32 summation order")
+    return (got.float() - want.to(dtype).float()).abs().max().item()
+
+
+def _halo_check(label: str, got, want, dtype) -> float:
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"halo_conv2d {label}: non-finite output")
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    tol = HALO_TOL[dtype] * scale
+    print(f"[kernels] halo_conv2d {label} {str(dtype)[6:]}: "
+          f"max_abs_err={err:.3g} (tol {tol:.3g} = {HALO_TOL[dtype]:g} x "
+          f"max(1, max|y|))")
+    if err > tol:
+        raise AssertionError(f"halo_conv2d {label}: error {err} > {tol}")
+    return err
+
+
+def _halo_cases(gen) -> dict:
+    """YoloV2 (darknet yolov2.cfg at a 416x416 input) conv blocks: the
+    104x104x128 and 52x52x256 layers with 2 fused 3x3 convs split over the
+    paper's 2 and 4 cores, and the 26x26x512 layer alone on 4.  Each tiled
+    run is held against the tiles' plain version and the whole-image
+    cuDNN block, and the two tilings against each other (exactly)."""
+    cases = [(104, 128, 2), (52, 256, 2), (26, 512, 1)]
+    row = None
+    halo_conv_block_tiles.launches = 0
+    timings = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for hw, ch, n in cases:
+            x, ws = _halo_inputs(hw, ch, n, dtype, gen)
+            whole = conv_block_ref(x, ws)
+            outs = {}
+            for tiles in ([(1, 2), (2, 2)] if n > 1 else [(2, 2)]):
+                label = f"{hw}x{hw}x{ch} n={n} tiles={tiles}"
+                th, tw = hw // tiles[0], hw // tiles[1]
+                tl = _extract_tiles(F.pad(x, (0, 0, n, n, n, n)), *tiles, th,
+                                    tw, n)
+                got = halo_conv_block_tiles(tl, ws, tile_h=th, tile_w=tw)
+                err = _halo_tiles_check(label, got, tl, ws, dtype)
+                outs[tiles] = halo_conv_block(x, ws, tiles=tiles)
+                _halo_check(label + " block vs cuDNN block", outs[tiles],
+                            whole, dtype)
+                timings.append((label, dtype, tl, ws, th, tw, x, err))
+            if len(outs) == 2:
+                diff = (outs[(1, 2)].float() - outs[(2, 2)].float()).abs()
+                print(f"[kernels] halo_conv2d {hw}x{hw}x{ch} n={n} tiles "
+                      f"(1, 2) vs (2, 2) {str(dtype)[6:]}: max_abs_diff="
+                      f"{diff.max().item():.3g} (exact)")
+                if not torch.equal(outs[(1, 2)], outs[(2, 2)]):
+                    raise AssertionError("halo_conv2d: result depends on "
+                                         "the tiling")
+    launches = halo_conv_block_tiles.launches
+    print(f"[kernels] halo_conv2d: {launches} kernel launches in the checked "
+          "calls of this phase (standalone: no model runs it)")
+    for label, dtype, tl, ws, th, tw, x, err in timings:
+        ms = device_ms(lambda: halo_conv_block_tiles(tl, ws, tile_h=th,
+                                                     tile_w=tw), calls=10)
+        plain = device_ms(lambda: halo_conv_block_tiles_ref(tl, ws),
+                          calls=10)
+        lib = device_ms(lambda: conv_block_ref(x, ws), calls=10)
+        out_shape = (tl.shape[0], th, tw, ws[-1].shape[-1])
+        flops, hin, win = 0.0, tl.shape[1], tl.shape[2]
+        for w in ws:
+            hin, win = hin - 2, win - 2
+            flops += 2.0 * 9 * w.shape[2] * w.shape[3] * tl.shape[0] * hin \
+                * win
+        n_bytes = _nbytes(tl, *ws) + tl.element_size() * \
+            out_shape[0] * out_shape[1] * out_shape[2] * out_shape[3]
+        timing = _report("halo_conv2d", label, dtype, ms, plain, lib,
+                         n_bytes, flops)
+        if label.startswith("104x104x128 n=2 tiles=(2, 2)") and \
+                dtype == torch.float32:
+            row = dict(HALO_ROW, max_abs_err=err, launches=launches,
+                       **timing)
+    return row
+
+
 # --------------------------------------------------------------------------- #
-# Phase 3: serve full-width qwen2-0.5b                                        #
+# Phase 3: serve full-width qwen2-0.5b and xlstm-1.3b                         #
 # --------------------------------------------------------------------------- #
 
 
-def phase_serve() -> dict[str, int]:
-    cfg = get_config(ARCH)
+KERNELS = {"decode_attention": decode_attention,
+           "flash_attention": flash_attention, "slstm_scan": slstm_scan,
+           "halo_conv2d": halo_conv_block_tiles}
+
+
+def _n_layers(cfg, mixer: str) -> int:
+    return sum(st.repeats for st in cfg.stages for ld in st.pattern
+               if ld.mixer == mixer)
+
+
+def _expected_launches(cfg, prefills: int, tokens: int) -> dict[str, int]:
+    """One launch per layer per prefill (flash, sLSTM scan over the prompt)
+    and per decode token (decode attention, one sLSTM step)."""
+    attn, slstm = _n_layers(cfg, "attn"), _n_layers(cfg, "slstm")
+    return {"decode_attention": attn * tokens,
+            "flash_attention": attn * prefills,
+            "slstm_scan": slstm * (prefills + tokens), "halo_conv2d": 0}
+
+
+def _counted(fn, counter: list):
+    def wrapped(*a, **kw):
+        counter[0] += 1
+        return fn(*a, **kw)
+    return wrapped
+
+
+def phase_serve(arch: str) -> dict[str, int]:
+    """Serve the request mix on ``arch`` at full width; returns each
+    kernel's launches in the engine run."""
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, 0, device="cuda")
     n_params = sum(t.numel() for t in _leaves(params))
     torch.cuda.synchronize()
-    print(f"[serve] {ARCH}: {cfg.n_layers} layers d={cfg.d_model} "
+    print(f"[serve] {arch}: {cfg.n_layers} layers d={cfg.d_model} "
           f"H={cfg.n_heads} KV={cfg.n_kv_heads} d_ff={cfg.d_ff} "
           f"vocab={cfg.padded_vocab}, {n_params} params "
           f"({cfg.param_dtype}) initialised in "
           f"{time.perf_counter() - t0:.2f} s")
+    if arch == "xlstm-1.3b" and n_params != XLSTM_PARAMS:
+        raise AssertionError(f"xlstm-1.3b holds {n_params} params, the JAX "
+                             f"tree {XLSTM_PARAMS}")
 
     t0 = time.perf_counter()
     cost = measure_cost_model(cfg, prompt_len=PROMPT_LEN,
                               cache_len=CACHE_LEN, reps=3, device="cuda")
-    print(f"[serve] cost model in {time.perf_counter() - t0:.2f} s: "
+    print(f"[serve] {arch} cost model in {time.perf_counter() - t0:.2f} s: "
           f"prefill {cost.prefill[1]}, decode {cost.decode}")
     _step_device_times(cfg, params, cost, n_params)
     net = engine_network_config(cost, LP_TOKENS)
     eng = PreemptiveServingEngine(cfg, params, cost, device="cuda",
                                   n_slices=4, units_per_slice=4,
                                   preemption=True, lose_work=True, net=net)
+    prefills, tokens = [0], [0]
+    eng._prefill = _counted(eng._prefill, prefills)
+    eng._serve = _counted(eng._serve, tokens)
 
     gen = torch.Generator()
     gen.manual_seed(1)
@@ -322,26 +560,29 @@ def phase_serve() -> dict[str, int]:
         reqs.append(req)
         eng.q.push(arrive, lambda r=req: eng.submit(r))
 
-    decode_attention.launches = 0
-    flash_attention.launches = 0
+    for fn in KERNELS.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     m = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"decode_attention": decode_attention.launches,
-                "flash_attention": flash_attention.launches}
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
 
     hp_reqs = [r for r in reqs if r.priority == Priority.HIGH]
     lp_done = [r for r in reqs
                if r.priority == Priority.LOW and r.state == "done"]
-    print(f"[serve] engine run {wall:.2f} s wall: HP "
+    print(f"[serve] {arch} engine run {wall:.2f} s wall: HP "
           f"{sum(r.state == 'done' for r in hp_reqs)}/{len(hp_reqs)} done, "
           f"LP {len(lp_done)}/{len(reqs) - len(hp_reqs)} done, "
           f"{m.preemptions} preemptions, {m.realloc_success} victim "
           f"reallocations, {m.lp_offloaded} LP offloaded")
-    print("[serve] summary " + json.dumps(m.summary(), default=str))
-    print("[serve] kernel launches in the engine run: " + ", ".join(
-        f"{k}={v}" for k, v in launches.items()))
+    print(f"[serve] {arch} summary " + json.dumps(m.summary(), default=str))
+    print(f"[serve] {arch} kernel launches in the engine run "
+          f"({prefills[0]} prefills, {tokens[0]} decode tokens): "
+          + ", ".join(f"{k}={v}" for k, v in launches.items()))
+    print(f"[serve] {arch} peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          "(max_memory_allocated over init, cost model and engine run)")
     bad_hp = [(r.rid, r.state) for r in hp_reqs if r.state != "done"]
     if bad_hp:
         raise AssertionError(f"HP requests not done: {bad_hp}")
@@ -352,11 +593,14 @@ def phase_serve() -> dict[str, int]:
     for r in reqs:
         if not all(0 <= t < cfg.vocab_size for t in r.tokens_out):
             raise AssertionError(f"request {r.rid}: token out of range")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched")
+    want = _expected_launches(cfg, prefills[0], tokens[0])
+    if launches != want or not any(launches.values()):
+        raise AssertionError(f"kernel launches {launches}, expected {want}")
 
-    _check_against_cpu(cfg, params, reqs[0].prompt)
+    if arch == "xlstm-1.3b":
+        _check_xlstm_logits(cfg, params, reqs[0].prompt)
+    else:
+        _check_against_cpu(cfg, params, reqs[0].prompt)
     return launches
 
 
@@ -364,7 +608,8 @@ def _step_device_times(cfg, params, cost, n_params: int) -> None:
     """Device time of one prefill and one decode step from CUDA-graph
     replay (no host gaps), beside the host-fenced times the cost model
     measured at the same shapes (degree 2 is the measured decode time):
-    the gap is host dispatch, during which the device idles."""
+    the gap is host dispatch, during which the device idles.  Then one of
+    each step under the profiler, for the breakdown by kernel."""
     pre = make_prefill_step(cfg, CACHE_LEN, device="cuda")
     srv = make_serve_step(cfg, device="cuda")
     gen = torch.Generator(device="cuda")
@@ -385,6 +630,36 @@ def _step_device_times(cfg, params, cost, n_params: int) -> None:
               f"(graph replay), device idle share "
               f"{1 - dev_ms / (1e3 * host_s):.3f}; weights read once "
               f"{weights_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12} TB/s")
+    _profile(f"{cfg.name} prefill T={PROMPT_LEN}", lambda: pre(params, batch))
+    _profile(f"{cfg.name} decode",
+             lambda: srv(params, caches, last, PROMPT_LEN))
+
+
+def _profile(label: str, fn, top: int = 10) -> None:
+    """One warm ``fn()`` under ``torch.profiler``: its host-fenced wall
+    time, the summed device time of its kernels, and the kernels that take
+    the most of it, grouped by name.  The profiler slows the host, so the
+    busy share here is below the one graph replay gives."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError(f"{label}: the profiler recorded no device time")
+    print(f"[profile] {label}: wall {wall_ms:.3f} ms (host-fenced, under "
+          f"the profiler), device busy {busy_ms:.3f} ms in "
+          f"{sum(e.count for e in kernels)} kernel launches, busy share "
+          f"{busy_ms / wall_ms:.3f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        ms = e.self_device_time_total / 1e3
+        print(f"[profile] {label}:   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% "
+              f"x{e.count:<5d} {e.key[:100]}")
 
 
 def _leaves(tree):
@@ -397,27 +672,56 @@ def _tree_to(tree, device):
             for k, v in tree.items()}
 
 
+def _logits(cfg, params, prompt, dev) -> tuple:
+    """Prefill and one decode step from the same weights and prompt."""
+    pre, caches = M.prefill(params, cfg, {"tokens": prompt.to(dev)},
+                            CACHE_LEN)
+    nxt = prompt[:, -1:].to(dev)
+    dec, _ = M.decode_step(params, cfg, caches, nxt, prompt.shape[1])
+    return pre.float().cpu(), dec.float().cpu()
+
+
+def _compare_logits(label: str, got: tuple, want: tuple) -> None:
+    for i, phase in enumerate(("prefill", "decode")):
+        g, w = got[i], want[i]
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label} {phase} logits not finite")
+        err = (g - w).abs().max().item()
+        print(f"[serve] {label} {phase} logits [1, 1, {g.shape[-1]}]: "
+              f"max_abs_err={err:.3g} (tol {LOGIT_TOL:g}, logits "
+              f"max |x|={w.abs().max().item():.3g})")
+        if err > LOGIT_TOL:
+            raise AssertionError(f"{label} {phase} logits differ by {err}")
+
+
 @torch.inference_mode()
 def _check_against_cpu(cfg, params, prompt) -> None:
-    """Prefill and one decode step on the card (kernels) and on the CPU
-    (plain versions) from the same weights and prompt."""
-    logits = {}
-    for dev, p in (("cuda", params), ("cpu", _tree_to(params, "cpu"))):
-        pre, caches = M.prefill(p, cfg, {"tokens": prompt.to(dev)},
-                                CACHE_LEN)
-        nxt = prompt[:, -1:].to(dev)
-        dec, _ = M.decode_step(p, cfg, caches, nxt, prompt.shape[1])
-        logits[dev] = (pre.float().cpu(), dec.float().cpu())
-    for i, phase in enumerate(("prefill", "decode")):
-        got, want = logits["cuda"][i], logits["cpu"][i]
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"{phase} logits not finite")
-        err = (got - want).abs().max().item()
-        print(f"[serve] {phase} logits [1, 1, {got.shape[-1]}] card vs CPU: "
-              f"max_abs_err={err:.3g} (tol {LOGIT_TOL:g}, logits "
-              f"max |x|={want.abs().max().item():.3g})")
-        if err > LOGIT_TOL:
-            raise AssertionError(f"{phase} logits differ by {err}")
+    """The card (kernels) against the CPU (plain versions)."""
+    _compare_logits(f"{cfg.name} card vs CPU",
+                    _logits(cfg, params, prompt, "cuda"),
+                    _logits(cfg, _tree_to(params, "cpu"), prompt, "cpu"))
+
+
+@torch.inference_mode()
+def _check_xlstm_logits(cfg, params, prompt) -> None:
+    """All 48 layers with the sLSTM kernel against the same model on the
+    card with the sLSTM plain version in its place; then one full-width
+    superblock (7 mLSTM + 1 sLSTM) with the kernel against the CPU (a CPU
+    copy of the whole 14 GB model is not needed for that)."""
+    got = _logits(cfg, params, prompt, "cuda")
+    X.slstm_scan = slstm_scan_ref
+    try:
+        want = _logits(cfg, params, prompt, "cuda")
+    finally:
+        X.slstm_scan = slstm_scan
+    _compare_logits(f"{cfg.name} sLSTM kernel vs plain on the card", got,
+                    want)
+    pattern = cfg.stages[0].pattern
+    one = replace(cfg, n_layers=len(pattern), stages=(StageDef(pattern, 1),))
+    small = M.init_params(one, 0, device="cuda")
+    _compare_logits(f"{cfg.name} one superblock card vs CPU",
+                    _logits(one, small, prompt, "cuda"),
+                    _logits(one, _tree_to(small, "cpu"), prompt, "cpu"))
 
 
 def main() -> int:
@@ -432,8 +736,15 @@ def main() -> int:
     print(f"[env] card: {card}")
     phase_build()
     rows = phase_kernels()
-    launches = phase_serve()
-    kernels = [dict(rows[name], launches=launches[name])
+    launches = {}
+    for arch in ARCHS:
+        ran = phase_serve(arch)
+        launches.update({k: v for k, v in ran.items() if v})
+        gc.collect()                        # free this model before the next
+        torch.cuda.empty_cache()
+    # a served model's kernels carry its engine run's launches; the
+    # standalone halo conv block carries those of its own phase
+    kernels = [dict({"launches": launches.get(name, 0)}, **rows[name])
                for name in sorted(rows)]
     print(card)
     print(json.dumps({"kernels": kernels}))

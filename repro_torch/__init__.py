@@ -7,7 +7,7 @@ are verbatim copies; everything that computes is written against ``torch``.
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``: without a
 card it raises unless the caller asks for ``device="cpu"`` explicitly (see
-:func:`repro_torch.device.resolve_device`).  Attention goes through
-hand-written Hopper kernels on CUDA tensors and through their plain PyTorch
-versions on CPU tensors.
+:func:`repro_torch.device.resolve_device`).  Attention, the sLSTM scan and
+the halo conv block go through hand-written Hopper kernels on CUDA tensors
+and through their plain PyTorch versions on CPU tensors.
 """

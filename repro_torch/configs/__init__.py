@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``arch id`` -> ModelConfig.
 
-Only the dense GQA decoders that the ported serving path runs are listed;
-the remaining architectures wait for their mixers (see ROADMAP.md).
+Only the architectures whose layers the port runs are listed: the dense
+GQA decoders and xLSTM.  The rest wait for their mixers (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from ..models.config import ModelConfig
 _MODULES = {
     "smollm-135m": "smollm_135m",
     "qwen2-0.5b": "qwen2_0_5b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -126,11 +126,12 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 
 
-def check_inputs(name: str, floats, ints, *, shapes_ok: bool,
-                 head_dim: int) -> None:
+def check_inputs(name: str, floats, ints=(), *, f32s=(), shapes_ok: bool,
+                 head_dim: int | None = None,
+                 max_head_dim: int = MAX_HEAD_DIM) -> None:
     """Raise unless the tensors are what the kernel takes: one CUDA device,
-    contiguous, float tensors of one supported dtype, int32 index tensors,
-    consistent shapes."""
+    contiguous, ``floats`` of one supported dtype, ``f32s`` (state, bias) in
+    float32, int32 index tensors, consistent shapes."""
     dev = floats[0].device
     dtype = floats[0].dtype
     if dev.type != "cuda":
@@ -139,18 +140,21 @@ def check_inputs(name: str, floats, ints, *, shapes_ok: bool,
     if dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: dtype {dtype} not supported; "
                          f"expected one of {list(DTYPE_CODES)}")
-    for t in (*floats, *ints):
+    for t in (*floats, *f32s, *ints):
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     if any(t.dtype != dtype for t in floats):
-        raise ValueError(f"{name}: q, k and v must share one dtype")
+        raise ValueError(f"{name}: float inputs must share one dtype, got "
+                         f"{[t.dtype for t in floats]}")
+    if any(t.dtype != torch.float32 for t in f32s):
+        raise ValueError(f"{name}: state and bias must be float32")
     if any(t.dtype != torch.int32 for t in ints):
         raise ValueError(f"{name}: positions must be int32")
     if not shapes_ok:
         raise ValueError(f"{name}: inconsistent shapes "
-                         f"{[tuple(t.shape) for t in (*floats, *ints)]}")
-    if not 0 < head_dim <= MAX_HEAD_DIM:
+                         f"{[tuple(t.shape) for t in (*floats, *f32s, *ints)]}")
+    if head_dim is not None and not 0 < head_dim <= max_head_dim:
         raise ValueError(f"{name}: head dim {head_dim} outside "
-                         f"1..{MAX_HEAD_DIM}")
+                         f"1..{max_head_dim}")

@@ -6,8 +6,9 @@ for leaf; ``jax.lax.scan`` over that axis becomes a Python loop that takes
 one layer's views per step.  Caches are stacked the same way, and each
 layer writes its slot of them in place.
 
-Only the dense decoder layer is ported (attention mixer, dense FFN, no
-cross-attention); any other layer raises ``NotImplementedError``.
+Ported layers: the attention, mLSTM and sLSTM mixers with a dense FFN or
+none (xLSTM blocks carry their own projections).  Mamba, MLA, MoE and
+cross-attention raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,10 +18,12 @@ from typing import Optional
 import torch
 
 from .config import LayerDef, ModelConfig, StageDef
-from .layers import attention, ffn
+from .layers import attention, ffn, xlstm
 from .layers.common import rmsnorm, rmsnorm_init
 
-_ROADMAP_MIXERS = "ROADMAP.md, Queue 1 item 10 (other mixers, by architecture)"
+_ROADMAP_MIXERS = "ROADMAP.md, Queue 1 item 9 (other mixers, by architecture)"
+_MIXERS = ("attn", "mlstm", "slstm")
+_FFNS = ("dense", "none")
 
 
 @dataclass
@@ -36,10 +39,10 @@ class LayerCtx:
 
 def check_layer(ld: LayerDef) -> None:
     """Raise for a layer kind the port does not run yet."""
-    if ld.mixer != "attn":
+    if ld.mixer not in _MIXERS:
         raise NotImplementedError(
             f"mixer {ld.mixer!r} is not ported yet: {_ROADMAP_MIXERS}")
-    if ld.ffn != "dense":
+    if ld.ffn not in _FFNS:
         raise NotImplementedError(
             f"ffn {ld.ffn!r} is not ported yet: {_ROADMAP_MIXERS}")
     if ld.cross_attn:
@@ -56,18 +59,24 @@ def layer_init(generator: torch.Generator, ld: LayerDef, cfg: ModelConfig,
                dtype: torch.dtype) -> dict:
     check_layer(ld)
     dev = generator.device
-    return {
-        "norm1": rmsnorm_init(cfg.d_model, dtype, dev),
-        "mixer": attention.attn_init(generator, cfg, dtype),
-        "norm2": rmsnorm_init(cfg.d_model, dtype, dev),
-        "ffn": ffn.ffn_init(generator, cfg.d_model, cfg.d_ff, dtype),
-    }
+    init = {"attn": attention.attn_init, "mlstm": xlstm.mlstm_init,
+            "slstm": xlstm.slstm_init}[ld.mixer]
+    p = {"norm1": rmsnorm_init(cfg.d_model, dtype, dev),
+         "mixer": init(generator, cfg, dtype)}
+    if ld.ffn == "dense":
+        p["norm2"] = rmsnorm_init(cfg.d_model, dtype, dev)
+        p["ffn"] = ffn.ffn_init(generator, cfg.d_model, cfg.d_ff, dtype)
+    return p
 
 
 def layer_cache_init(ld: LayerDef, cfg: ModelConfig, batch: int,
                      cache_len: int, dtype: torch.dtype,
                      device: torch.device) -> dict:
     check_layer(ld)
+    if ld.mixer == "mlstm":
+        return {"self": xlstm.init_mlstm_cache(batch, cfg, dtype, device)}
+    if ld.mixer == "slstm":
+        return {"self": xlstm.init_slstm_cache(batch, cfg, device)}
     return {"self": attention.init_kv_cache(
         batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim, dtype,
         device)}
@@ -83,14 +92,23 @@ def layer_apply(
     """Returns (x, cache); a given cache is written in place."""
     check_layer(ld)
     cfg = ctx.cfg
+    self_cache = cache["self"] if cache else None
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    out, _ = attention.attn_apply(
-        params["mixer"], h, cfg, positions=ctx.positions, causal=ctx.causal,
-        window=ctx.window, cache=cache["self"] if cache else None,
-        pos=ctx.pos)
-    x = x + attention.attn_out_project(params["mixer"], out)
-    h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
-    return x + ffn.ffn_apply(params["ffn"], h2), cache
+    if ld.mixer == "attn":
+        out, _ = attention.attn_apply(
+            params["mixer"], h, cfg, positions=ctx.positions,
+            causal=ctx.causal, window=ctx.window, cache=self_cache,
+            pos=ctx.pos)
+        out = attention.attn_out_project(params["mixer"], out)
+    elif ld.mixer == "mlstm":
+        out, _ = xlstm.mlstm_apply(params["mixer"], h, cfg, cache=self_cache)
+    else:
+        out, _ = xlstm.slstm_apply(params["mixer"], h, cfg, cache=self_cache)
+    x = x + out
+    if ld.ffn == "dense":
+        h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
+        x = x + ffn.ffn_apply(params["ffn"], h2)
+    return x, cache
 
 
 # --------------------------------------------------------------------------- #

@@ -1,1 +1,2 @@
-"""Layer primitives of the port: common ops, GQA attention, dense FFN."""
+"""Layer primitives of the port: common ops, GQA attention, dense FFN,
+xLSTM's mLSTM and sLSTM blocks."""

@@ -44,6 +44,16 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x * params["scale"].float()).to(dtype)
 
 
+def groupnorm_heads(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Per-head group norm over the last (head_dim) axis, no learned params;
+    f32 math with the population variance, output in the input dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mean = x.mean(dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    return ((x - mean) * torch.rsqrt(var + eps)).to(dtype)
+
+
 # --------------------------------------------------------------------------- #
 # RoPE                                                                        #
 # --------------------------------------------------------------------------- #

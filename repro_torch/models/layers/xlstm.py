@@ -1,0 +1,269 @@
+"""xLSTM blocks (arXiv:2405.04517): mLSTM (matrix memory, parallelisable)
+and sLSTM (scalar memory, sequential scan), both with exponential gating and
+the max-state stabiliser.
+
+Port of the JAX package's ``models/layers/xlstm.py``.  The mLSTM runs its
+parallel (T x T decay-masked) form over a sequence and its recurrent form
+against a cache; the chunkwise form (``cfg.mlstm_chunk``) is not ported
+yet.  Every sLSTM recurrence, a prompt's T steps or a decode token's one,
+goes through the ``slstm_scan`` op (the CUDA kernel on a card, its plain
+version on the CPU).  Unlike the JAX layers, a cache is updated in place.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ...kernels.slstm_scan import slstm_scan
+from ..config import ModelConfig
+from .common import dense_init, groupnorm_heads, normal_init, silu
+
+_ROADMAP_CHUNKED = ("ROADMAP.md, Queue 1 item 9 (the chunkwise mLSTM, "
+                    "_mlstm_chunked)")
+
+
+# =========================================================================== #
+# mLSTM                                                                       #
+# =========================================================================== #
+
+
+def _mlstm_dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    di = int(cfg.xlstm.proj_factor_mlstm * cfg.d_model)
+    return di, cfg.n_heads, di // cfg.n_heads
+
+
+def mlstm_init(generator: torch.Generator, cfg: ModelConfig,
+               dtype: torch.dtype) -> dict:
+    """The JAX tree: q/k/v dense ``[di, H, dh]``; the gate projections and
+    biases stay f32 whatever ``dtype`` is."""
+    d = cfg.d_model
+    di, h, dh = _mlstm_dims(cfg)
+    dev = generator.device
+    return {
+        "up_proj": dense_init(generator, d, 2 * di, dtype=dtype),
+        "conv_w": dense_init(generator, cfg.xlstm.conv_kernel, di,
+                             dtype=dtype),
+        "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
+        "wq": dense_init(generator, di, h, dh, dtype=dtype),
+        "wk": dense_init(generator, di, h, dh, dtype=dtype),
+        "wv": dense_init(generator, di, h, dh, dtype=dtype),
+        "w_i": dense_init(generator, di, h, dtype=torch.float32),
+        "w_f": dense_init(generator, di, h, dtype=torch.float32),
+        "b_i": torch.zeros((h,), dtype=torch.float32, device=dev),
+        "b_f": torch.full((h,), 3.0, dtype=torch.float32, device=dev),
+        "skip": torch.ones((di,), dtype=dtype, device=dev),
+        "down_proj": dense_init(generator, di, d, dtype=dtype),
+    }
+
+
+def init_mlstm_cache(batch: int, cfg: ModelConfig, dtype: torch.dtype,
+                     device: torch.device) -> dict:
+    di, h, dh = _mlstm_dims(cfg)
+    f32 = torch.float32
+    return {
+        "conv": torch.zeros((batch, cfg.xlstm.conv_kernel - 1, di),
+                            dtype=dtype, device=device),
+        "c": torch.zeros((batch, h, dh, dh), dtype=f32, device=device),
+        "n": torch.zeros((batch, h, dh), dtype=f32, device=device),
+        "m": torch.full((batch, h), -1e30, dtype=f32, device=device),
+    }
+
+
+def _conv_causal(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                 prior: Optional[torch.Tensor]) -> torch.Tensor:
+    """Depthwise causal conv: w [K, di], x [B, T, di], prior [B, K-1, di]."""
+    k = w.shape[0]
+    if prior is None:
+        prior = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    xp = torch.cat([prior, x], dim=1)
+    t = x.shape[1]
+    out = xp[:, 0:t] * w[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + t] * w[i]
+    return out + b
+
+
+def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B, T, di] @ w [di, H, dh] -> [B, T, H, dh]."""
+    bsz, t, di = x.shape
+    return torch.matmul(x, w.reshape(di, -1)).view(bsz, t, *w.shape[1:])
+
+
+def _qkv_gates(params: dict, xi: torch.Tensor):
+    q = _proj_heads(xi, params["wq"])
+    k = _proj_heads(xi, params["wk"])
+    v = _proj_heads(xi, params["wv"])
+    xf = xi.float()
+    i_pre = torch.matmul(xf, params["w_i"]) + params["b_i"]
+    f_pre = torch.matmul(xf, params["w_f"]) + params["b_f"]
+    return q, k, v, i_pre, f_pre
+
+
+def _mlstm_parallel(q, k, v, i_pre, f_pre) -> torch.Tensor:
+    """The T x T decay-masked form over a whole sequence -> [B, T, H, dh]
+    f32."""
+    t, dh = q.shape[1], q.shape[3]
+    logf = F.logsigmoid(f_pre)                              # [B,T,H]
+    cum = torch.cumsum(logf, dim=1)
+    # a[t, s] = sum_{j=s+1..t} logf_j + logi_s  (t >= s)
+    amat = cum[:, :, None, :] - cum[:, None, :, :] + i_pre[:, None, :, :]
+    causal = torch.tril(torch.ones((t, t), dtype=torch.bool,
+                                   device=q.device))[None, :, :, None]
+    amat = amat.masked_fill(~causal, float("-inf"))         # [B,Tq,Ts,H]
+    m = amat.amax(dim=2, keepdim=True)                      # [B,T,1,H]
+    dmat = torch.exp(amat - m)
+    scale = dh ** -0.5
+    scores = torch.einsum("bthk,bshk->btsh", q.float(), k.float()) * scale
+    sd = scores * dmat
+    norm = torch.maximum(sd.sum(dim=2).abs(), torch.exp(-m[:, :, 0]))
+    hout = torch.einsum("btsh,bshk->bthk", sd, v.float())
+    return hout / (norm[..., None] + 1e-6)
+
+
+def _mlstm_update(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                  i_pre: torch.Tensor, f_pre: torch.Tensor) -> torch.Tensor:
+    """One recurrent step written into ``cache`` (c, n, m) in place:
+    k/v [B, H, dh] f32, gates [B, H].  Returns the new stabiliser m."""
+    logf = F.logsigmoid(f_pre)
+    m_new = torch.maximum(logf + cache["m"], i_pre)
+    f_eff = torch.exp(logf + cache["m"] - m_new)
+    i_eff = torch.exp(i_pre - m_new)
+    cache["c"].mul_(f_eff[..., None, None]).add_(
+        (i_eff[..., None] * k)[..., :, None] * v[..., None, :])
+    cache["n"].mul_(f_eff[..., None]).add_(i_eff[..., None] * k)
+    cache["m"].copy_(m_new)
+    return m_new
+
+
+def mlstm_apply(
+    params: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    cache: Optional[dict] = None,
+) -> tuple[torch.Tensor, Optional[dict]]:
+    """Full sequence (``cache`` None) or one token against the cache, which
+    is written in place and returned."""
+    di = params["skip"].shape[0]
+    up = torch.matmul(x, params["up_proj"])
+    xi_raw, z = up[..., :di], up[..., di:]
+
+    if cache is None:
+        if cfg.mlstm_chunk and x.shape[1] > cfg.mlstm_chunk:
+            raise NotImplementedError(
+                f"mLSTM over T={x.shape[1]} > mlstm_chunk="
+                f"{cfg.mlstm_chunk} is not ported yet: {_ROADMAP_CHUNKED}")
+        xi = silu(_conv_causal(params["conv_w"], params["conv_b"], xi_raw,
+                               None))
+        q, k, v, i_pre, f_pre = _qkv_gates(params, xi)
+        hout = _mlstm_parallel(q, k, v, i_pre, f_pre)
+    else:
+        conv_win = torch.cat([cache["conv"], xi_raw], dim=1)
+        xi = silu(torch.einsum("bki,ki->bi", conv_win, params["conv_w"])
+                  + params["conv_b"])[:, None, :]
+        q, k, v, i_pre, f_pre = _qkv_gates(params, xi)
+        dh = q.shape[3]
+        kf, vf = k[:, 0].float(), v[:, 0].float()
+        m_new = _mlstm_update(cache, kf, vf, i_pre[:, 0], f_pre[:, 0])
+        qf = q[:, 0].float() * dh ** -0.5
+        num = torch.einsum("bhk,bhkj->bhj", qf, cache["c"])
+        den = torch.maximum(
+            torch.einsum("bhk,bhk->bh", qf, cache["n"]).abs(),
+            torch.exp(-m_new))
+        hout = (num / (den[..., None] + 1e-6))[:, None]     # [B,1,H,dh]
+        cache["conv"].copy_(conv_win[:, 1:])
+
+    hout = groupnorm_heads(hout).to(x.dtype)
+    b, t = x.shape[:2]
+    hflat = hout.reshape(b, t, di) + params["skip"] * xi
+    y = hflat * silu(z)
+    return torch.matmul(y, params["down_proj"]), cache
+
+
+def fill_mlstm_cache(params: dict, h: torch.Tensor, cache: dict) -> dict:
+    """Prefill: run the recurrence token by token over the normed prompt
+    ``h`` from the fresh cache's state, and keep the conv tail (the last
+    K-1 raw up-projected inputs, zero-padded in front)."""
+    di = params["skip"].shape[0]
+    xi_raw = torch.matmul(h, params["up_proj"])[..., :di]
+    xi = silu(_conv_causal(params["conv_w"], params["conv_b"], xi_raw, None))
+    _, k, v, i_pre, f_pre = _qkv_gates(params, xi)
+    kf, vf = k.float(), v.float()
+    for t in range(h.shape[1]):
+        _mlstm_update(cache, kf[:, t], vf[:, t], i_pre[:, t], f_pre[:, t])
+    kk = params["conv_w"].shape[0] - 1
+    tail = xi_raw[:, max(0, xi_raw.shape[1] - kk):]
+    cache["conv"].zero_()
+    if kk and tail.shape[1]:
+        cache["conv"][:, kk - tail.shape[1]:] = tail.to(cache["conv"].dtype)
+    return cache
+
+
+# =========================================================================== #
+# sLSTM                                                                       #
+# =========================================================================== #
+
+
+def slstm_init(generator: torch.Generator, cfg: ModelConfig,
+               dtype: torch.dtype) -> dict:
+    d = cfg.d_model
+    h = cfg.n_heads
+    dh = d // h
+    df = int(cfg.xlstm.ffn_proj_factor * d)
+    dev = generator.device
+    bias = torch.zeros((4, h, dh), dtype=torch.float32, device=dev)
+    bias[1] = 3.0                                      # forget-gate bias > 0
+    return {
+        "w": dense_init(generator, d, 4, h, dh, dtype=dtype),  # i, f, z, o
+        "r": normal_init(generator, (4, h, dh, dh), dh ** -0.5, dtype),
+        "b": bias,
+        "ffn_gate": dense_init(generator, d, 2 * df, dtype=dtype),
+        "ffn_down": dense_init(generator, df, d, dtype=dtype),
+    }
+
+
+def init_slstm_cache(batch: int, cfg: ModelConfig,
+                     device: torch.device) -> dict:
+    """The scan's zero state (h, c, n, m) = (0, 0, 1, 0), each [B, H, dh]
+    f32."""
+    h = cfg.n_heads
+    dh = cfg.d_model // h
+    shape, f32 = (batch, h, dh), torch.float32
+    return {
+        "h": torch.zeros(shape, dtype=f32, device=device),
+        "c": torch.zeros(shape, dtype=f32, device=device),
+        "n": torch.ones(shape, dtype=f32, device=device),
+        "m": torch.zeros(shape, dtype=f32, device=device),
+    }
+
+
+def slstm_apply(
+    params: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    cache: Optional[dict] = None,
+) -> tuple[torch.Tensor, Optional[dict]]:
+    """One ``slstm_scan`` call over x's T steps: from the zero state
+    (``cache`` None), or from the cache's state, which then receives the
+    state after the last step in place (one step per decode token; a fresh
+    cache over the whole prompt in prefill)."""
+    b, t, d = x.shape
+    heads = cfg.n_heads
+    dh = d // heads
+    wx = torch.matmul(x, params["w"].reshape(d, -1)).view(b, t, 4, heads, dh)
+    if cache is None:
+        hs, _ = slstm_scan(wx, params["r"], params["b"])
+    else:
+        state = (cache["h"], cache["c"], cache["n"], cache["m"])
+        hs, _ = slstm_scan(wx, params["r"], params["b"], state,
+                           out_state=state)
+    hs = groupnorm_heads(hs).to(x.dtype).reshape(b, t, d)
+    y = x + hs                                          # residual core
+    # gated FFN (proj factor 4/3)
+    gu = torch.matmul(y, params["ffn_gate"])
+    df = gu.shape[-1] // 2
+    y2 = silu(gu[..., :df]) * gu[..., df:]
+    return torch.matmul(y2, params["ffn_down"]), cache

@@ -1,12 +1,14 @@
-"""The dense decoder: embeddings, decoder stages, tied or untied LM head,
-with init / forward / prefill / decode_step entry points.
+"""The decoder: embeddings, decoder stages, tied or untied LM head, with
+init / forward / prefill / decode_step entry points.
 
 Port of the JAX package's ``models/model.py`` for decoder-only text models
-whose layers are attention + dense FFN.  Encoder-decoder and modality
-front ends raise ``NotImplementedError`` (ROADMAP.md, Queue 1 item 10).
+whose layers :func:`blocks.check_layer` admits (attention with a dense FFN,
+xLSTM's mLSTM and sLSTM blocks).  Encoder-decoder and modality front ends
+raise ``NotImplementedError`` (ROADMAP.md, Queue 1 item 9).
 
-Caches are written in place: ``prefill`` fills freshly allocated caches and
-``decode_step`` writes one slot per layer into the caches it is given and
+Caches are written in place: ``prefill`` fills freshly allocated caches
+(K/V slots, or the recurrent states of the xLSTM layers) and
+``decode_step`` updates each layer's cache in the caches it is given and
 returns the same dict.
 """
 from __future__ import annotations
@@ -18,6 +20,7 @@ from .blocks import LayerCtx, check_layer, layer_apply, stage_apply, \
     stage_cache_init, stage_init, take_layer
 from .config import ModelConfig
 from .layers.attention import project_kv
+from .layers.xlstm import fill_mlstm_cache
 from .layers.common import normal_init, dense_init, rmsnorm, rmsnorm_init
 
 Params = dict
@@ -33,7 +36,7 @@ def check_config(cfg: ModelConfig) -> None:
     if cfg.is_encoder_decoder or cfg.modality_embed_dim:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and modality front ends are not "
-            "ported yet: ROADMAP.md, Queue 1 item 10")
+            "ported yet: ROADMAP.md, Queue 1 item 9")
     for st in cfg.stages:
         for ld in st.pattern:
             check_layer(ld)
@@ -152,11 +155,23 @@ def _prefill_stage(stage_params: dict, st, x: torch.Tensor, ctx: LayerCtx,
 
 def _prefill_layer(p: dict, ld, x: torch.Tensor, ctx: LayerCtx, cache: dict,
                    cache_len: int) -> torch.Tensor:
-    """Run the layer in full-sequence mode, then write its K/V into the
-    cache (recomputed from the same normed input, as the JAX prefill does)."""
+    """Run the layer over the prompt and fill its cache.
+
+    Attention and mLSTM run in full-sequence mode, then recompute their
+    cacheable values (K/V, the mLSTM state and conv tail) from the same
+    normed input, as the JAX prefill does.  The sLSTM runs its one scan
+    from the fresh cache, which holds the zero state: the same call gives
+    the hidden states and writes the final (h, c, n, m) into the cache,
+    where the JAX prefill runs the recurrence a second time."""
+    if ld.mixer == "slstm":
+        x_out, _ = layer_apply(p, ld, x, ctx, cache=cache)
+        return x_out
     x_out, _ = layer_apply(p, ld, x, ctx, cache=None)
     h = rmsnorm(p["norm1"], x, ctx.cfg.norm_eps)
-    _fill_kv(p["mixer"], h, ctx.cfg, ctx, cache["self"], cache_len)
+    if ld.mixer == "mlstm":
+        fill_mlstm_cache(p["mixer"], h, cache["self"])
+    else:
+        _fill_kv(p["mixer"], h, ctx.cfg, ctx, cache["self"], cache_len)
     return x_out
 
 

@@ -14,6 +14,8 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.halo_conv2d import halo_conv_block_tiles
+from repro_torch.kernels.slstm_scan import slstm_scan
 from repro_torch.models import model as M
 from repro_torch.serving.cost_model import CostModel, PhaseCost, \
     measure_cost_model
@@ -26,7 +28,7 @@ COPIES = [f"core/{n}.py" for n in (
     "__init__", "task", "calendar", "metrics", "network", "profiles",
     "policy", "scheduler", "victims", "workstealer", "oracle")] + [
     "sim/events.py", "models/config.py", "configs/qwen2_0_5b.py",
-    "configs/smollm_135m.py"]
+    "configs/smollm_135m.py", "configs/xlstm_1_3b.py"]
 PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
@@ -70,8 +72,18 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+KERNEL_PACKAGES = ["decode_attention", "flash_attention", "halo_conv2d",
+                   "slstm_scan"]
+
+
+def test_import_check_covers_every_kernel_package():
+    for name in KERNEL_PACKAGES:
+        for mod in ("__init__", "ops", "ref"):
+            assert PORT / "kernels" / name / f"{mod}.py" in PORT_FILES
+
+
 def test_kernel_sources_are_found():
-    assert _build.all_kernels() == ["decode_attention", "flash_attention"]
+    assert _build.all_kernels() == KERNEL_PACKAGES
     for name in _build.all_kernels():
         lib = _build.library_path(name)
         assert lib.parent == _build.BUILD_DIR
@@ -131,4 +143,14 @@ def test_kernel_wrappers_do_not_fall_back_off_the_cpu():
     p = torch.empty((5,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="needs CUDA"):
         flash_attention(q4, k4, k4, p, p)
+    wx = torch.empty((1, 3, 4, 2, 8), device="meta")
+    r = torch.empty((4, 2, 8, 8), device="meta")
+    b = torch.empty((4, 2, 8), device="meta")
+    with pytest.raises(ValueError, match="needs CUDA"):
+        slstm_scan(wx, r, b)
+    tiles = torch.empty((4, 10, 10, 3), device="meta")
+    w = torch.empty((3, 3, 3, 5), device="meta")
+    with pytest.raises(ValueError, match="needs CUDA"):
+        halo_conv_block_tiles(tiles, [w], tile_h=8, tile_w=8)
     assert decode_attention.launches == 0 and flash_attention.launches == 0
+    assert slstm_scan.launches == 0 and halo_conv_block_tiles.launches == 0

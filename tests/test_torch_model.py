@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import model as JM
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
@@ -205,12 +206,65 @@ def test_params_from_numpy_bf16_and_dtype_cast():
     assert cast["dec0"]["p0"]["mixer"]["wq"].dtype == torch.bfloat16
 
 
+def test_params_from_numpy_keeps_f32_by_design_leaves():
+    """An xLSTM tree keeps its gate projections and biases in f32 (as the
+    JAX init makes them) when a dtype is asked for, whether the source tree
+    is bf16 or f32 (xlstm-1.3b's own param dtype); the cast tree runs."""
+    for src in ("bfloat16", "float32"):
+        jcfg = replace(jax_smoke_config("xlstm-1.3b"), param_dtype=src)
+        jp = jax.tree.map(np.asarray,
+                          JM.init_params(jcfg, jax.random.PRNGKey(0)))
+        for dtype in (torch.bfloat16, torch.float32):
+            tp = params_from_numpy(jp, "cpu", dtype=dtype)
+            mix, sl = tp["dec0"]["p0"]["mixer"], tp["dec0"]["p1"]["mixer"]
+            for name in ("w_i", "w_f", "b_i", "b_f"):
+                assert mix[name].dtype == torch.float32, (src, name)
+            assert sl["b"].dtype == torch.float32, src
+            assert mix["wq"].dtype == sl["r"].dtype == tp["embed"].dtype == \
+                dtype
+            np.testing.assert_array_equal(mix["w_i"].numpy(),
+                                          jp["dec0"]["p0"]["mixer"]["w_i"])
+    tcfg = replace(get_smoke_config("xlstm-1.3b"), param_dtype="bfloat16")
+    tp = params_from_numpy(jp, "cpu", dtype=torch.bfloat16)   # f32 source
+    with torch.inference_mode():
+        logits = M.forward(tp, tcfg, {"tokens": torch.from_numpy(
+            _tokens(tcfg, (1, 4))).long()})
+    assert torch.isfinite(logits.float()).all()
+
+
+def test_params_from_numpy_casts_every_other_leaf():
+    """Outside the xLSTM gates no leaf is f32 by design: every floating
+    leaf of a qwen2 tree (its q/k/v biases included) takes the dtype."""
+    jp = jax.tree.map(np.asarray, JM.init_params(
+        jax_smoke_config("qwen2-0.5b"), jax.random.PRNGKey(0)))
+    tp = params_from_numpy(jp, "cpu", dtype=torch.bfloat16)
+    leaves = jax.tree.leaves(tp)
+    assert leaves and all(t.dtype == torch.bfloat16 for t in leaves)
+
+
 def test_full_width_config_is_qwen2_0_5b():
     cfg = get_config("qwen2-0.5b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.resolved_head_dim, cfg.d_ff) == (24, 896, 14, 2, 64, 4864)
     assert cfg.padded_vocab == 152064 and cfg.qkv_bias and \
         cfg.tie_embeddings and cfg.param_dtype == "float32"
+
+
+def test_full_width_config_is_xlstm_1_3b():
+    """48 layers, 6 x (7 mLSTM + 1 sLSTM), d=2048, 4 heads; the JAX tree
+    holds 3,503,728,976 params (dense q/k/v; ModelConfig.param_count()
+    counts them block-diagonal)."""
+    cfg = get_config("xlstm-1.3b")
+    pattern = cfg.stages[0].pattern
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.padded_vocab) == \
+        (48, 2048, 4, 50688) and cfg.stages[0].repeats == 6
+    assert [ld.mixer for ld in pattern] == ["mlstm"] * 7 + ["slstm"]
+    assert cfg.tie_embeddings and cfg.param_dtype == "float32" and \
+        cfg.mlstm_chunk == 0
+    shapes = jax.eval_shape(lambda k: JM.init_params(jax_config(
+        "xlstm-1.3b"), k), jax.ShapeDtypeStruct((2,), jnp.uint32))
+    assert sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes)) == \
+        3_503_728_976 != cfg.param_count()
 
 
 def test_unported_layers_raise_with_roadmap_pointer():

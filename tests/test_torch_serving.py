@@ -28,11 +28,10 @@ from repro_torch.serving.engine import (
 )
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = jax_smoke_config("qwen2-0.5b")
+def _setup(arch):
+    jcfg = jax_smoke_config(arch)
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    cfg = get_smoke_config("qwen2-0.5b")
+    cfg = get_smoke_config(arch)
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     # synthetic cost model (fast, deterministic; no timing needed)
     cost = CostModel()
@@ -40,6 +39,16 @@ def setup():
     cost.decode[2] = PhaseCost(0.02, 0.002)
     cost.decode[4] = PhaseCost(0.014, 0.0014)
     return cfg, params, cost, jcfg, jparams
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup("qwen2-0.5b")
+
+
+@pytest.fixture(scope="module")
+def xlstm_setup():
+    return _setup("xlstm-1.3b")
 
 
 def _engine(cfg, params, cost, lp_tokens=6, **kw):
@@ -220,13 +229,13 @@ def test_analytic_cost_model_matches_jax():
 # --------------------------------------------------------------------------- #
 
 
-def _script(cfg):
+def _script(cfg, n_lp=4):
     """(arrival, kwargs) of a burst that saturates slice 0 with LP work,
     then tight-deadline HP requests that must preempt, plus offloadable LP
     work on slice 1."""
     out = []
     rid = 1000
-    for i in range(4):
+    for i in range(n_lp):
         out.append((0.0, dict(seed=i + 2, max_new_tokens=4, hp=False,
                               deadline=120.0, home_slice=0, rid=rid)))
         rid += 1
@@ -234,14 +243,14 @@ def _script(cfg):
         out.append((at, dict(seed=40 + i, max_new_tokens=1, hp=True,
                              deadline=None, home_slice=i % 2, rid=rid)))
         rid += 1
-    for i in range(3):
+    for i in range(n_lp - 1):
         out.append((0.05 * i, dict(seed=60 + i, max_new_tokens=3, hp=False,
                                    deadline=60.0, home_slice=1, rid=rid)))
         rid += 1
     return out
 
 
-def _run_script(kind, setup, lose_work):
+def _run_script(kind, setup, lose_work, n_lp=4):
     cfg, params, cost, jcfg, jparams = setup
     if kind == "jax":
         jax_task.reset_id_counters()
@@ -261,7 +270,7 @@ def _run_script(kind, setup, lose_work):
             net=net, lose_work=lose_work)
         serve_request, prio, mk = ServeRequest, Priority, torch.from_numpy
     reqs = []
-    for at, kw in _script(cfg):
+    for at, kw in _script(cfg, n_lp):
         hp = kw["hp"]
         deadline = kw["deadline"] or at + net.t_hp * 2 + 0.2
         req = serve_request(
@@ -287,10 +296,18 @@ def _virtual(summary):
     return {k: v for k, v in summary.items() if k not in WALL_CLOCK_KEYS}
 
 
-@pytest.mark.parametrize("lose_work", [True, False])
-def test_engines_agree_on_outcomes_and_metrics(setup, lose_work):
-    j_out, j_sum = _run_script("jax", setup, lose_work)
-    t_out, t_sum = _run_script("torch", setup, lose_work)
+@pytest.mark.parametrize("arch,lose_work,n_lp", [
+    pytest.param("qwen2-0.5b", True, 4, id="True"),
+    pytest.param("qwen2-0.5b", False, 4, id="False"),
+    # a few requests: 3 LP on slice 0, 3 HP that preempt, 2 offloadable LP
+    pytest.param("xlstm-1.3b", True, 3, id="xlstm-1.3b-True"),
+])
+def test_engines_agree_on_outcomes_and_metrics(request, arch, lose_work,
+                                               n_lp):
+    setup = request.getfixturevalue(
+        "setup" if arch == "qwen2-0.5b" else "xlstm_setup")
+    j_out, j_sum = _run_script("jax", setup, lose_work, n_lp)
+    t_out, t_sum = _run_script("torch", setup, lose_work, n_lp)
     assert t_out == j_out
     assert t_sum.keys() == j_sum.keys()
     assert _virtual(t_sum) == _virtual(j_sum)
