@@ -14,7 +14,11 @@ first fault (the script exits 0 only if every phase passed):
              where one exists (``scaled_dot_product_attention`` for the
              attention kernels, a cuDNN ``conv2d`` chain for the halo conv
              block; yardsticks the port never calls) from CUDA-graph
-             replays.  The halo conv block runs at YoloV2's widths and is
+             replays; decode attention and SDPA also with L2 flushed, and
+             the decode kernel also at the edges of its chunking (an empty
+             cache, S=1, S=4096, other head dims), its counters checked
+             back at 0 after every graph replay.  The halo conv block
+             runs at YoloV2's widths and is
              also checked for tiling invariance (its standalone phase).
   3. serve   for each served model with random weights from seed 0 (full
              width; qwen2-0.5b, then xlstm-1.3b): ``measure_cost_model``,
@@ -53,6 +57,7 @@ from repro_torch.core.task import Priority
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.halo_conv2d import (conv_block_ref,
@@ -108,10 +113,9 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def device_ms(fn, calls: int = 50, reps: int = 5) -> float:
-    """Device time of one ``fn()``: ``calls`` calls captured in a CUDA graph,
-    replayed ``reps`` times between two events (no host gaps between
-    launches; inputs stay in L2 between calls)."""
+def _graph(fn, calls: int) -> torch.cuda.CUDAGraph:
+    """``calls`` calls of ``fn`` captured in a CUDA graph, after three
+    warm-up calls on a side stream."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -122,6 +126,14 @@ def device_ms(fn, calls: int = 50, reps: int = 5) -> float:
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
+    return graph
+
+
+def device_ms(fn, calls: int = 50, reps: int = 5) -> float:
+    """Device time of one ``fn()``: ``calls`` calls captured in a CUDA graph,
+    replayed ``reps`` times between two events (no host gaps between
+    launches; inputs stay in L2 between calls)."""
+    graph = _graph(fn, calls)
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -131,6 +143,32 @@ def device_ms(fn, calls: int = 50, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (calls * reps)
+
+
+FLUSH_BYTES = 256 * 2**20             # written before a cold call; L2 50 MB
+_flush = []
+
+
+def cold_ms(fn, reps: int = 20) -> float:
+    """Device time of one ``fn()`` with L2 flushed, as a step's kernel meets
+    its inputs: one call captured in a CUDA graph; before each replay a
+    256 MiB buffer is written (which also keeps the device busy while the
+    host enqueues the replay), and events bracket the replay alone."""
+    if not _flush:
+        _flush.append(torch.empty(FLUSH_BYTES // 4, device="cuda"))
+    buf = _flush[0]
+    graph = _graph(fn, 1)
+    events = []
+    for _ in range(reps):
+        buf.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
 def _nbytes(*ts) -> int:
@@ -167,20 +205,23 @@ def phase_build() -> None:
 # --------------------------------------------------------------------------- #
 
 
-def _decode_case(s: int, n_filled: int, pos: int, window: int, dtype,
-                 gen) -> tuple:
-    """q [B,H,D], cache [B,S,KV,D] and its slot positions.  A rotating
+def _decode_case(s: int, n_filled: int, pos: int, window: int, dtype, gen,
+                 d: int = D, alternate: bool = False) -> tuple:
+    """q [B,H,d], cache [B,S,KV,d] and its slot positions.  A rotating
     cache (window > 0) holds, in slot j, the newest position p <= pos with
-    p % S == j; a contiguous one holds 0..n_filled-1 and then -1."""
-    q = torch.randn((B, H, D), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((B, s, KV, D), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((B, s, KV, D), generator=gen, device="cuda").to(dtype)
+    p % S == j; a contiguous one holds 0..n_filled-1 and then -1, and with
+    ``alternate`` only its odd slots (so a chunk's first slot is empty)."""
+    q = torch.randn((B, H, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, s, KV, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, s, KV, d), generator=gen, device="cuda").to(dtype)
+    slots = torch.arange(s, device="cuda")
     if window > 0:
-        slots = torch.arange(s, device="cuda")
         row = pos - ((pos - slots) % s)
     else:
-        row = torch.arange(s, device="cuda")
-        row = torch.where(row < n_filled, row, torch.full_like(row, -1))
+        keep = slots < n_filled
+        if alternate:
+            keep &= slots % 2 == 1
+        row = torch.where(keep, slots, torch.full_like(slots, -1))
     positions = row.to(torch.int32)[None].expand(B, s).contiguous()
     return q, k, v, positions, pos, window
 
@@ -220,24 +261,7 @@ def phase_kernels() -> dict:
     main-path case (float32)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    rows = {}
-
-    # decode: the engine's cache (S=256) with a served request's 40
-    # positions, a ragged S, and a rotating window cache
-    decode_cases = [("S=256 filled=40 (main path)", 256, 40, 39, 0),
-                    ("S=200 filled=200", 200, 200, 199, 0),
-                    ("S=64 window=64 rotated pos=300", 64, 0, 300, 64)]
-    for dtype in (torch.float32, torch.bfloat16):
-        for i, (label, s, n_filled, pos, window) in enumerate(decode_cases):
-            args = _decode_case(s, n_filled, pos, window, dtype, gen)
-            want = decode_attention_ref(*args[:5], window=window)
-            got = decode_attention(*args[:5], window=window)
-            err = _check("decode_attention", label, got, want, dtype)
-            timing = _time_decode(label, args)
-            if i == 0 and dtype == torch.float32:
-                rows["decode_attention"] = dict(DECODE_ROW, max_abs_err=err,
-                                                **timing)
-
+    rows = {"decode_attention": _decode_cases(gen)}
     flash_cases = [(f"T={t} causal", t, True, 0) for t in (8, 16, 37, 128)]
     flash_cases += [("T=128 causal window=32", 128, True, 32),
                     ("T=37 non-causal", 37, False, 0)]
@@ -267,8 +291,67 @@ def _report(name: str, label: str, dtype, ms: float, plain: float,
             "bound_by": by}
 
 
+def _counters_at_rest(where: str) -> None:
+    """The decode kernel's CTAs meet on counters that every call must leave
+    at 0 (what lets a CUDA graph replay it)."""
+    torch.cuda.synchronize()
+    for dev, t in decode_ops._counters.items():
+        if int(t.count_nonzero()):
+            raise AssertionError(f"decode_attention counters on cuda:{dev} "
+                                 f"not back at 0 after {where}")
+
+
+def _decode_cases(gen) -> dict:
+    """The engine's cache (S=256) with a served request's 40 positions,
+    then around it: a ragged S, a rotating window cache, an empty cache
+    (exact zeros), S=1, a long cache (many chunks, a ragged last one),
+    valid slots alternating with empty ones, D=128, and head dims that take
+    the kernel's scalar loads (D=60 in bf16, D=63).  Each case is checked
+    again after its CUDA-graph timing replays."""
+    cases = [("S=256 filled=40 (main path)", 256, 40, 39, 0, D, False),
+             ("S=200 filled=200", 200, 200, 199, 0, D, False),
+             ("S=64 window=64 rotated pos=300", 64, 0, 300, 64, D, False),
+             ("S=256 empty", 256, 0, 39, 0, D, False),
+             ("S=1", 1, 1, 0, 0, D, False),
+             ("S=4096 filled=3000", 4096, 3000, 2999, 0, D, False),
+             ("S=256 filled=200 odd slots only", 256, 200, 199, 0, D, True),
+             ("S=256 filled=40 D=128", 256, 40, 39, 0, 128, False),
+             ("S=256 filled=40 D=60", 256, 40, 39, 0, 60, False),
+             ("S=256 filled=40 D=63", 256, 40, 39, 0, 63, False)]
+    plan = decode_ops.plan_split(B, CACHE_LEN, H, KV, D)
+    smem = _build.load("decode_attention").decode_attention_smem_bytes(
+        H, KV, D, plan.chunk, 0)
+    print(f"[kernels] decode_attention main path: grid {plan.grid} of "
+          f"{plan.chunk}-slot chunks, {smem} bytes of dynamic shared memory "
+          "a CTA (f32)")
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (label, s, n_filled, pos, window, d, alt) in enumerate(cases):
+            args = _decode_case(s, n_filled, pos, window, dtype, gen, d, alt)
+            want = decode_attention_ref(*args[:5], window=window)
+            got = decode_attention(*args[:5], window=window)
+            err = _check("decode_attention", label, got, want, dtype)
+            if n_filled == 0 and window == 0 and \
+                    not torch.equal(got, torch.zeros_like(got)):
+                raise AssertionError(f"decode_attention {label}: not zero")
+            timing = _time_decode(label, args)
+            again = decode_attention(*args[:5], window=window)
+            if not torch.equal(again, got):
+                raise AssertionError(f"decode_attention {label}: result "
+                                     "changed after graph replays")
+            _counters_at_rest(f"decode_attention {label}")
+            if i == 0 and dtype == torch.float32:
+                row = dict(DECODE_ROW, max_abs_err=err, **timing)
+    _flush.clear()
+    one = torch.zeros(1, device="cuda")
+    print(f"[kernels] practical floor: one launch of a one-element add_ "
+          f"takes {device_ms(lambda: one.add_(1)):.5f} ms by graph replay")
+    return row
+
+
 def _time_decode(label: str, args) -> dict:
     q, k, v, positions, pos, window = args
+    h, d = q.shape[1:]
     valid = (positions >= 0) & (positions <= pos)
     if window > 0:
         valid &= positions > pos - window
@@ -276,17 +359,27 @@ def _time_decode(label: str, args) -> dict:
     mask = valid[:, None, None, :]
     qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms = device_ms(lambda: decode_attention(q, k, v, positions, pos,
-                                            window=window))
+
+    def kernel():
+        return decode_attention(q, k, v, positions, pos, window=window)
+
+    def library():
+        return sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+    ms = device_ms(kernel)
     plain = device_ms(lambda: decode_attention_ref(q, k, v, positions, pos,
                                                    window=window))
-    lib = device_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask,
-                                 enable_gqa=True))
+    lib = device_ms(library)
+    cold, lib_cold = cold_ms(kernel), cold_ms(library)
     # each input once (only the valid K/V rows are needed), output once
-    kv_row = KV * D * k.element_size()
+    kv_row = k.shape[2] * d * k.element_size()
     n_bytes = _nbytes(q, positions) + 2 * n_valid * kv_row + _nbytes(q)
-    return _report("decode_attention", label, q.dtype, ms, plain, lib,
-                   n_bytes, 4.0 * H * D * n_valid)
+    timing = _report("decode_attention", label, q.dtype, ms, plain, lib,
+                     n_bytes, 4.0 * h * d * n_valid)
+    print(f"[kernels] decode_attention {label} {str(q.dtype)[6:]}: "
+          f"L2 flushed: kernel_cold_ms={cold:.5f} library_cold_ms="
+          f"{lib_cold:.5f} (warm: {ms:.5f}, {lib:.5f})")
+    return dict(timing, cold_ms=cold, library_cold_ms=lib_cold)
 
 
 def _time_flash(label: str, args, causal: bool, window: int) -> dict:
@@ -533,6 +626,7 @@ def phase_serve(arch: str) -> dict[str, int]:
     print(f"[serve] {arch} cost model in {time.perf_counter() - t0:.2f} s: "
           f"prefill {cost.prefill[1]}, decode {cost.decode}")
     _step_device_times(cfg, params, cost, n_params)
+    _counters_at_rest(f"{arch} step replays")
     net = engine_network_config(cost, LP_TOKENS)
     eng = PreemptiveServingEngine(cfg, params, cost, device="cuda",
                                   n_slices=4, units_per_slice=4,

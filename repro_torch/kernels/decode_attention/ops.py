@@ -1,11 +1,20 @@
 """Wrapper of the decode attention kernel (``csrc/decode_attention.cu``).
 
 CPU tensors take the plain version; CUDA tensors launch the kernel or
-raise.  ``decode_attention.launches`` counts kernel launches.
+raise.  ``decode_attention.launches`` counts kernel launches: one per call,
+the cross-chunk combine included.
+
+The kernel cuts the cache's S slots into ``n_split`` chunks, one CTA each,
+and its last CTA per (batch, KV head) merges their partials from an f32
+workspace.  :func:`plan_split` is that cut; the CTAs meet on int32
+counters that the kernel leaves at 0, kept here once per device.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -13,14 +22,65 @@ from .. import _build
 from .ref import decode_attention_ref
 
 NAME = "decode_attention"
+MAX_CHUNK = 64          # slots a CTA takes at most (kMaxChunk in the kernel)
+SM_COUNT = 132          # H100 SXM
+MIN_COUNTERS = 1024
+
+# decode_attention_launch: q, k, v, positions, out, ws, counters; B, S, H,
+# KV, D, chunk, n_split, pos, window, dtype; stream
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+
+_launch_fn = None
+_counters: dict[int, torch.Tensor] = {}
+_retired: list[torch.Tensor] = []   # outgrown counters a graph may still use
+
+
+class SplitPlan(NamedTuple):
+    chunk: int                      # slots per CTA (the last chunk ragged)
+    n_split: int                    # CTAs per (batch, KV head)
+    grid: tuple[int, int, int]      # (n_split, KV, B)
+    workspace_shape: tuple          # f32 (B, KV, n_split, G, D + 2)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_split(b: int, s: int, h: int, kv: int, d: int) -> SplitPlan:
+    """Chunks of 32 slots while they fit on the card's SMs in one wave, else
+    of ``MAX_CHUNK``; never longer than the cache."""
+    chunk = 32 if b * kv * math.ceil(s / 32) <= SM_COUNT else MAX_CHUNK
+    chunk = min(chunk, s)
+    n_split = math.ceil(s / chunk)
+    return SplitPlan(chunk, n_split, (n_split, kv, b),
+                     (b, kv, n_split, h // kv, d + 2))
 
 
 def _launcher():
-    fn = _build.load(NAME).decode_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    global _launch_fn
+    if _launch_fn is None:
+        fn = _build.load(NAME).decode_attention_launch
+        fn.argtypes = ARGTYPES
+        fn.restype = ctypes.c_int
+        _launch_fn = fn
+    return _launch_fn
+
+
+def _group_counters(device: torch.device, n: int) -> torch.Tensor:
+    """Zeroed int32 counters, at least ``n``, for ``device``.  They are
+    allocated outside CUDA-graph capture (a first call before capture does
+    it) and never freed, since a captured graph keeps their address."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    t = _counters.get(idx)
+    if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{NAME}: call once outside CUDA-graph capture at batch x "
+                f"KV heads >= {n} before capturing")
+        if t is not None:
+            _retired.append(t)
+        t = torch.zeros(max(n, MIN_COUNTERS), dtype=torch.int32,
+                        device=device)
+        _counters[idx] = t
+    return t
 
 
 def decode_attention(
@@ -44,12 +104,17 @@ def decode_attention(
                    and v_cache.shape == k_cache.shape
                    and positions.shape == (b, s) and h % kv == 0),
         head_dim=d)
+    plan = plan_split(b, s, h, kv, d)
     out = torch.empty_like(q)
+    ws = torch.empty(plan.workspace_shape, dtype=torch.float32,
+                     device=q.device)
+    counters = _group_counters(q.device, b * kv)
     with torch.cuda.device(q.device):
         err = _launcher()(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            positions.data_ptr(), out.data_ptr(), b, s, h, kv, d, int(pos),
-            int(window), _build.DTYPE_CODES[q.dtype],
+            positions.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            counters.data_ptr(), b, s, h, kv, d, plan.chunk, plan.n_split, int(pos), int(window),
+            _build.DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, NAME)
     decode_attention.launches += 1
