@@ -7,7 +7,9 @@ Run from the root of a checkout.  It runs every phase, each raising on its
 first fault (the script exits 0 only if every phase passed):
 
   1. build   compile every CUDA kernel of the port from its ``csrc/``
-             sources, one nvcc per kernel, all started together.
+             sources, one nvcc per kernel, all started together; count
+             the tensor-core instructions in the halo conv library's SASS
+             (``cuobjdump -sass``; none is a failure).
   2. kernels hold each kernel against its plain PyTorch version on the card,
              in float32 and bfloat16, at the serving shapes and around
              them; time the kernel, the plain version and a library call
@@ -18,8 +20,10 @@ first fault (the script exits 0 only if every phase passed):
              the decode kernel also at the edges of its chunking (an empty
              cache, S=1, S=4096, other head dims), its counters checked
              back at 0 after every graph replay.  The halo conv block
-             runs at YoloV2's widths and is
-             also checked for tiling invariance (its standalone phase).
+             runs at YoloV2's widths and on a small block with ragged
+             channel counts, and is also checked for tiling invariance
+             (its standalone phase); its bound counts the bf16
+             tensor-core passes its split operands take.
   3. serve   for each served model with random weights from seed 0 (full
              width; qwen2-0.5b, then xlstm-1.3b): ``measure_cost_model``,
              then ``PreemptiveServingEngine`` with 4 slices x 4 units
@@ -46,6 +50,7 @@ import subprocess
 import sys
 import time
 from dataclasses import replace
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -64,7 +69,7 @@ from repro_torch.kernels.halo_conv2d import (conv_block_ref,
                                              halo_conv_block,
                                              halo_conv_block_tiles,
                                              halo_conv_block_tiles_ref)
-from repro_torch.kernels.halo_conv2d.ops import _extract_tiles
+from repro_torch.kernels.halo_conv2d.ops import _extract_tiles, plan_block
 from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_ref
 from repro_torch.models import model as M
 from repro_torch.models.config import StageDef
@@ -75,7 +80,9 @@ from repro_torch.serving.engine import (PreemptiveServingEngine,
 from repro_torch.training.steps import make_prefill_step, make_serve_step
 
 # H100 SXM, NVIDIA data sheet: HBM rate and dense peaks by input type (f32
-# outside the tensor cores; the kernels do their arithmetic there).
+# outside the tensor cores, where the attention and sLSTM kernels do their
+# arithmetic; the halo conv kernel issues bf16 tensor-core products, so its
+# bound counts its split passes at the bf16 peak in either dtype).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # Tolerances of the repo's kernel tests (tests/test_kernels.py TOLS): f32
@@ -175,9 +182,9 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound_ms(n_bytes: int, flops: float, dtype) -> tuple[float, str]:
+def bound_ms(n_bytes: int, flops: float, peak: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -198,6 +205,19 @@ def phase_build() -> None:
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] {len(names)} kernels {names} ready in {dt:.2f} s "
           f"(built now: {sorted(logs)})")
+    # the halo conv kernel's products must be tensor-core instructions
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"  # the toolkit's
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_build.library_path("halo_conv2d"))],
+                          check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    mma = {op: sum(op in ln for ln in sass.splitlines())
+           for op in ("HGMMA", "HMMA")}
+    print(f"[build] halo_conv2d SASS: {mma['HGMMA']} HGMMA and "
+          f"{mma['HMMA']} HMMA instructions (cuobjdump -sass)")
+    if not mma["HGMMA"] + mma["HMMA"]:
+        raise AssertionError("halo_conv2d: no tensor-core instruction in "
+                             "its SASS")
 
 
 # --------------------------------------------------------------------------- #
@@ -281,8 +301,9 @@ def phase_kernels() -> dict:
 
 
 def _report(name: str, label: str, dtype, ms: float, plain: float,
-            lib: float | None, n_bytes: int, flops: float) -> dict:
-    bms, by = bound_ms(n_bytes, flops, dtype)
+            lib: float | None, n_bytes: int, flops: float,
+            peak: float | None = None) -> dict:
+    bms, by = bound_ms(n_bytes, flops, peak or PEAK_FLOPS[dtype])
     lib_s = "none" if lib is None else f"{lib:.5f}"
     print(f"[kernels] {name} {label} {str(dtype)[6:]}: kernel_ms={ms:.5f} "
           f"plain_ms={plain:.5f} library_ms={lib_s} bound_ms={bms:.6f} "
@@ -467,12 +488,14 @@ def _slstm_cases(gen) -> dict:
     return row
 
 
-def _halo_inputs(hw: int, ch: int, n_layers: int, dtype, gen) -> tuple:
-    x = torch.randn((1, hw, hw, ch), generator=gen, device="cuda")
-    ws = [(2.0 / (9 * ch)) ** 0.5 * torch.randn((3, 3, ch, ch),
+def _halo_inputs(hw: int, chans: list[int], dtype, gen) -> tuple:
+    """An image [1, hw, hw, chans[0]] and one [3, 3, C, C'] weight per pair
+    of consecutive channel counts (He-scaled)."""
+    x = torch.randn((1, hw, hw, chans[0]), generator=gen, device="cuda")
+    ws = [(2.0 / (9 * ci)) ** 0.5 * torch.randn((3, 3, ci, co),
                                                  generator=gen,
                                                  device="cuda")
-          for _ in range(n_layers)]
+          for ci, co in zip(chans, chans[1:])]
     return x.to(dtype), [w.to(dtype) for w in ws]
 
 
@@ -514,20 +537,27 @@ def _halo_check(label: str, got, want, dtype) -> float:
 def _halo_cases(gen) -> dict:
     """YoloV2 (darknet yolov2.cfg at a 416x416 input) conv blocks: the
     104x104x128 and 52x52x256 layers with 2 fused 3x3 convs split over the
-    paper's 2 and 4 cores, and the 26x26x512 layer alone on 4.  Each tiled
-    run is held against the tiles' plain version and the whole-image
-    cuDNN block, and the two tilings against each other (exactly)."""
-    cases = [(104, 128, 2), (52, 256, 2), (26, 512, 1)]
+    paper's 2 and 4 cores, and the 26x26x512 layer alone on 4; then a small
+    ragged block (3 -> 13 -> 13 channels: zero-filled loads, a masked N
+    edge).  Each tiled run is held against the tiles' plain version and the
+    whole-image cuDNN block, and the two tilings against each other
+    (exactly)."""
+    cases = [(104, [128] * 3), (52, [256] * 3), (26, [512] * 2),
+             (20, [3, 13, 13])]
     row = None
     halo_conv_block_tiles.launches = 0
+    halo_conv_block_tiles.split_launches = 0
     timings = []
     for dtype in (torch.float32, torch.bfloat16):
-        for hw, ch, n in cases:
-            x, ws = _halo_inputs(hw, ch, n, dtype, gen)
+        for hw, chans in cases:
+            n = len(chans) - 1
+            x, ws = _halo_inputs(hw, chans, dtype, gen)
             whole = conv_block_ref(x, ws)
+            width = (str(chans[0]) if len(set(chans)) == 1
+                     else "->".join(map(str, chans)))
             outs = {}
             for tiles in ([(1, 2), (2, 2)] if n > 1 else [(2, 2)]):
-                label = f"{hw}x{hw}x{ch} n={n} tiles={tiles}"
+                label = f"{hw}x{hw}x{width} n={n} tiles={tiles}"
                 th, tw = hw // tiles[0], hw // tiles[1]
                 tl = _extract_tiles(F.pad(x, (0, 0, n, n, n, n)), *tiles, th,
                                     tw, n)
@@ -539,31 +569,50 @@ def _halo_cases(gen) -> dict:
                 timings.append((label, dtype, tl, ws, th, tw, x, err))
             if len(outs) == 2:
                 diff = (outs[(1, 2)].float() - outs[(2, 2)].float()).abs()
-                print(f"[kernels] halo_conv2d {hw}x{hw}x{ch} n={n} tiles "
+                print(f"[kernels] halo_conv2d {hw}x{hw}x{width} n={n} tiles "
                       f"(1, 2) vs (2, 2) {str(dtype)[6:]}: max_abs_diff="
                       f"{diff.max().item():.3g} (exact)")
                 if not torch.equal(outs[(1, 2)], outs[(2, 2)]):
                     raise AssertionError("halo_conv2d: result depends on "
                                          "the tiling")
     launches = halo_conv_block_tiles.launches
-    print(f"[kernels] halo_conv2d: {launches} kernel launches in the checked "
-          "calls of this phase (standalone: no model runs it)")
+    print(f"[kernels] halo_conv2d: {launches} conv kernel launches and "
+          f"{halo_conv_block_tiles.split_launches} split kernel launches in "
+          "the checked calls of this phase (standalone: no model runs it)")
+    lib = _build.load("halo_conv2d")
     for label, dtype, tl, ws, th, tw, x, err in timings:
         ms = device_ms(lambda: halo_conv_block_tiles(tl, ws, tile_h=th,
                                                      tile_w=tw), calls=10)
         plain = device_ms(lambda: halo_conv_block_tiles_ref(tl, ws),
                           calls=10)
-        lib = device_ms(lambda: conv_block_ref(x, ws), calls=10)
+        lib_ms = device_ms(lambda: conv_block_ref(x, ws), calls=10)
         out_shape = (tl.shape[0], th, tw, ws[-1].shape[-1])
-        flops, hin, win = 0.0, tl.shape[1], tl.shape[2]
-        for w in ws:
+        chans = [ws[0].shape[2]] + [w.shape[3] for w in ws]
+        plans = plan_block(tl.shape[0], tl.shape[1], tl.shape[2], chans,
+                           dtype)
+        flops = issued = 0.0
+        hin, win = tl.shape[1], tl.shape[2]
+        for w, plan in zip(ws, plans):
             hin, win = hin - 2, win - 2
-            flops += 2.0 * 9 * w.shape[2] * w.shape[3] * tl.shape[0] * hin \
-                * win
+            layer = 2.0 * 9 * w.shape[2] * w.shape[3] * tl.shape[0] * hin * win
+            flops += layer
+            issued += len(plan.k_walk[2]) * layer
         n_bytes = _nbytes(tl, *ws) + tl.element_size() * \
             out_shape[0] * out_shape[1] * out_shape[2] * out_shape[3]
-        timing = _report("halo_conv2d", label, dtype, ms, plain, lib,
-                         n_bytes, flops)
+        # the bound counts the bf16 tensor-core products the split passes
+        # issue; the useful flops are the convolution's own
+        timing = _report("halo_conv2d", label, dtype, ms, plain, lib_ms,
+                         n_bytes, issued, peak=PEAK_FLOPS[torch.bfloat16])
+        smem = [lib.halo_conv3x3_smem_bytes(p.a_planes, p.b_planes, p.tile)
+                for p in plans]
+        print(f"[kernels] halo_conv2d {label} {str(dtype)[6:]}: passes per "
+              f"layer {[len(p.k_walk[2]) for p in plans]} at the bf16 "
+              f"tensor-core peak {PEAK_FLOPS[torch.bfloat16] / 1e12:g} "
+              "TFLOP/s; "
+              f"achieved {flops / ms / 1e9:.1f} TFLOP/s of the convolution "
+              f"({issued / ms / 1e9:.1f} issued); CTA tiles "
+              f"{[p.tile for p in plans]}, grids {[p.grid for p in plans]}, "
+              f"dynamic smem {smem} B")
         if label.startswith("104x104x128 n=2 tiles=(2, 2)") and \
                 dtype == torch.float32:
             row = dict(HALO_ROW, max_abs_err=err, launches=launches,

@@ -17,7 +17,9 @@ from repro_torch.kernels.halo_conv2d import (conv_block_ref, halo_conv_block,
                                              halo_conv_block_ref,
                                              halo_conv_block_tiles,
                                              halo_conv_block_tiles_ref)
-from repro_torch.kernels.halo_conv2d.ops import _extract_tiles
+from repro_torch.kernels.halo_conv2d.ops import (PASSES, _extract_tiles,
+                                                 plan_block)
+from repro_torch.kernels.halo_conv2d.ref import _leaky, conv2d_valid
 
 TOL = 1e-4
 
@@ -112,3 +114,100 @@ def test_halo_conv_rejects_bad_tiling():
     with pytest.raises(ValueError, match="padded by"):
         halo_conv_block_tiles(torch.zeros((1, 9, 9, 4)), [w], tile_h=8,
                               tile_w=8)
+
+
+# --------------------------------------------------------------------------- #
+# The kernel's numerics, emulated in plain torch: the card's kernel cannot   #
+# run here, so its split-operand scheme is held to the card's f32 tolerance  #
+# (chip_smoke.py HALO_F32_TOL) at full channel width, K = 9 x Cin.           #
+# --------------------------------------------------------------------------- #
+
+HALO_F32_TOL = 1e-5
+
+
+def _pieces(x, n):
+    """x (f32) as n bf16 pieces (hi, mid, lo), each held in f32: the
+    kernel's split."""
+    out, r = [], x
+    for _ in range(n):
+        p = r.to(torch.bfloat16).float()
+        out.append(p)
+        r = r - p
+    return out
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) by masking the low f32 bits."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _emulate(tiles, ws, layer):
+    """n layers, each ``layer(x, w, i)`` then leaky-ReLU, f32 between."""
+    x = tiles.float()
+    for i, w in enumerate(ws):
+        x = _leaky(layer(x, w.float(), i), 0.1)
+    return x
+
+
+def _yolo_case(cin, dtype, hw=4, n_layers=2):
+    """One padded tile at full channel width, He-scaled weights."""
+    rng = np.random.default_rng(cin)
+    ph = hw + 2 * n_layers
+    tiles = torch.from_numpy(rng.standard_normal(
+        (1, ph, ph, cin)).astype(np.float32)).to(dtype)
+    ws = [torch.from_numpy(((2.0 / (9 * cin)) ** 0.5 * rng.standard_normal(
+        (3, 3, cin, cin))).astype(np.float32)).to(dtype)
+        for _ in range(n_layers)]
+    return tiles, ws
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin", [128, 256, 512])
+def test_split_passes_meet_the_f32_tolerance(cin, dtype):
+    """Three bf16 pieces per f32 operand and the kernel's passes (products
+    of bf16 pieces are exact in f32) meet 1e-5 x max(1, max|y|) against the
+    f32 plain version; a single bf16 or TF32 pass does not."""
+    tiles, ws = _yolo_case(cin, dtype)
+    plans = plan_block(1, tiles.shape[1], tiles.shape[2], [cin] * 3, dtype)
+    assert set(PASSES[(3, 3)]) == {(a, b) for a in range(3)
+                                   for b in range(3) if a + b <= 2}
+
+    def split(x, w, i):
+        plan = plans[i]
+        xa, wb = _pieces(x, plan.a_planes), _pieces(w, plan.b_planes)
+        assert plan.k_walk[2] == PASSES[(plan.a_planes, plan.b_planes)]
+        return sum(conv2d_valid(xa[a], wb[b]) for a, b in plan.k_walk[2])
+
+    want = halo_conv_block_tiles_ref(tiles.float(), [w.float() for w in ws])
+    limit = HALO_F32_TOL * max(1.0, want.abs().max().item())
+    got = _emulate(tiles, ws, split)
+    assert (got - want).abs().max().item() <= limit
+    one_bf16 = _emulate(tiles, ws, lambda x, w, i: conv2d_valid(
+        _pieces(x, 1)[0], _pieces(w, 1)[0]))
+    one_tf32 = _emulate(tiles, ws, lambda x, w, i: conv2d_valid(_tf32(x),
+                                                                _tf32(w)))
+    if dtype == torch.float32:
+        assert (one_bf16 - want).abs().max().item() > limit
+        assert (one_tf32 - want).abs().max().item() > limit
+    else:
+        # bf16 operands are exact in one plane; the f32 intermediate is not
+        assert (one_bf16 - want).abs().max().item() > limit
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,chans", [(104, [128] * 3), (52, [256] * 3),
+                                      (26, [512] * 2), (20, [3, 13, 13])])
+def test_plan_k_walk_does_not_depend_on_the_tiling(hw, chans, dtype):
+    """Exact tiling invariance on the card rests on every output element
+    summing its terms in one K walk: the (1, 2) and (2, 2) tilings of each
+    checked shape may pick other CTA tiles, never another K walk."""
+    n = len(chans) - 1
+    walks = {}
+    for tiles in [(1, 2), (2, 2)]:
+        th, tw = hw // tiles[0], hw // tiles[1]
+        plans = plan_block(tiles[0] * tiles[1], th + 2 * n, tw + 2 * n,
+                           chans, dtype)
+        walks[tiles] = [(p.a_planes, p.b_planes, p.k_walk) for p in plans]
+        for i, p in enumerate(plans):
+            assert p.k_walk[1] == -(-chans[i] // p.k_walk[0])
+    assert walks[(1, 2)] == walks[(2, 2)]
