@@ -19,7 +19,11 @@ first fault (the script exits 0 only if every phase passed):
              replays; decode attention and SDPA also with L2 flushed, and
              the decode kernel also at the edges of its chunking (an empty
              cache, S=1, S=4096, other head dims), its counters checked
-             back at 0 after every graph replay.  The halo conv block
+             back at 0 after every graph replay.  The sLSTM scan prints
+             its plan and how many of its clusters fit on the card, is
+             timed with L2 flushed too, runs 200 decode steps in place
+             against the plain version, and must give bit-identical
+             results with 16 and 8 CTAs a cluster.  The halo conv block
              runs at YoloV2's widths and on a small block with ragged
              channel counts, and is also checked for tiling invariance
              (its standalone phase); its bound counts the bf16
@@ -70,6 +74,7 @@ from repro_torch.kernels.halo_conv2d import (conv_block_ref,
                                              halo_conv_block_tiles,
                                              halo_conv_block_tiles_ref)
 from repro_torch.kernels.halo_conv2d.ops import _extract_tiles, plan_block
+from repro_torch.kernels.slstm_scan import ops as slstm_ops
 from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_ref
 from repro_torch.models import model as M
 from repro_torch.models.config import StageDef
@@ -435,57 +440,140 @@ HALO_ROW = {"name": "halo_conv2d", "route": "cuda",
             "standalone": True}
 
 
-def _slstm_inputs(b: int, t: int, with_state: bool, dtype, gen) -> tuple:
+def _slstm_inputs(b: int, t: int, with_state: bool, dtype, gen,
+                  heads: int = SH, dh: int = SDH) -> tuple:
     """wx [B,T,4,H,dh], R, bias (forget gate +3 as the model's init) and,
     with_state, a carry from 16 earlier steps of the plain version."""
-    wx = 0.5 * torch.randn((b, t, 4, SH, SDH), generator=gen, device="cuda")
-    r = SDH ** -0.5 * torch.randn((4, SH, SDH, SDH), generator=gen,
-                                  device="cuda")
-    bias = 0.1 * torch.randn((4, SH, SDH), generator=gen, device="cuda")
+    wx = 0.5 * torch.randn((b, t, 4, heads, dh), generator=gen, device="cuda")
+    r = dh ** -0.5 * torch.randn((4, heads, dh, dh), generator=gen,
+                                 device="cuda")
+    bias = 0.1 * torch.randn((4, heads, dh), generator=gen, device="cuda")
     bias[1] += 3.0
     wx, r = wx.to(dtype), r.to(dtype)
     state = None
     if with_state:
-        warm = (0.5 * torch.randn((b, 16, 4, SH, SDH), generator=gen,
+        warm = (0.5 * torch.randn((b, 16, 4, heads, dh), generator=gen,
                                   device="cuda")).to(dtype)
         state = slstm_scan_ref(warm, r, bias)[1]
     return wx, r, bias, state
 
 
+def _slstm_check(label: str, got, want, dtype) -> float:
+    """hs and the four final-state tensors against the plain version."""
+    err = _check("slstm_scan", label + " hs", got[0], want[0], dtype)
+    for name, g, w in zip("hcnm", got[1], want[1]):
+        err = max(err, _check("slstm_scan", f"{label} final {name}", g, w,
+                              dtype))
+    return err
+
+
+def _slstm_plan(label: str, b: int, t: int, heads: int, dh: int,
+                dtype) -> None:
+    plan = slstm_ops.plan_scan(b, t, heads, dh, dtype)
+    clusters = slstm_ops.max_active_clusters(plan, dtype,
+                                             torch.device("cuda"))
+    print(f"[kernels] slstm_scan {label} {str(dtype)[6:]} plan: {plan.n_cta} "
+          f"CTAs a cluster x {plan.cols} columns, {plan.threads} threads, "
+          f"grid {plan.grid}; R rows a k slice: {plan.register_rows} in "
+          f"registers, {plan.rows_per_slice} in shared memory; of dh={dh}: "
+          f"{plan.resident_rows} resident, {plan.streamed_rows} streamed; "
+          f"{plan.smem_bytes} B dynamic shared memory a CTA; "
+          f"cudaOccupancyMaxActiveClusters={clusters}")
+
+
 def _slstm_cases(gen) -> dict:
     """Serving shapes of xlstm-1.3b's sLSTM (B=1, H=4, dh=512): a 16-token
     prompt from the zero state and one decode step from a carried state;
-    then a ragged T and a longer batch.  Hidden states and the final state
-    are both held against the plain version."""
-    cases = [("B=1 T=16 zero state (prefill, main path)", 1, 16, False),
-             ("B=1 T=1 carried state (decode)", 1, 1, True),
-             ("B=1 T=37 carried state", 1, 37, True),
-             ("B=2 T=128 zero state", 2, 128, False)]
+    then a ragged T, a longer batch, a ragged head dim (H=3, dh=100) and
+    the largest (dh=1024).  Hidden states and the final state are held
+    against the plain version; each case is timed warm and with L2 flushed.
+    Then 200 decode steps in place (the cache update of every decode
+    token), each held against the plain version's own trajectory, and two
+    cluster sizes, which must agree bit for bit."""
+    cases = [("B=1 T=16 zero state (prefill, main path)", 1, 16, False,
+              SH, SDH),
+             ("B=1 T=1 carried state (decode)", 1, 1, True, SH, SDH),
+             ("B=1 T=37 carried state", 1, 37, True, SH, SDH),
+             ("B=2 T=128 zero state", 2, 128, False, SH, SDH),
+             ("B=1 T=16 H=3 dh=100 carried state", 1, 16, True, 3, 100),
+             ("B=1 T=16 dh=1024 carried state", 1, 16, True, SH, 1024)]
     row = None
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (label, b, t, with_state) in enumerate(cases):
-            wx, r, bias, state = _slstm_inputs(b, t, with_state, dtype, gen)
-            want_hs, want_st = slstm_scan_ref(wx, r, bias, state)
-            got_hs, got_st = slstm_scan(wx, r, bias, state)
-            err = _check("slstm_scan", label + " hs", got_hs, want_hs, dtype)
-            for name, g, w in zip("hcnm", got_st, want_st):
-                err = max(err, _check("slstm_scan", f"{label} final {name}",
-                                      g, w, dtype))
+        for i, (label, b, t, with_state, heads, dh) in enumerate(cases):
+            _slstm_plan(label, b, t, heads, dh, dtype)
+            wx, r, bias, state = _slstm_inputs(b, t, with_state, dtype, gen,
+                                               heads, dh)
+            want = slstm_scan_ref(wx, r, bias, state)
+            err = _slstm_check(label, slstm_scan(wx, r, bias, state), want,
+                               dtype)
             calls = 50 if t <= 16 else 5
             ms = device_ms(lambda: slstm_scan(wx, r, bias, state),
                            calls=calls)
             plain = device_ms(lambda: slstm_scan_ref(wx, r, bias, state),
                               calls=calls)
-            st_bytes = _nbytes(*want_st) * (2 if state is not None else 1)
-            n_bytes = _nbytes(wx, r, bias, want_hs) + st_bytes
+            cold = cold_ms(lambda: slstm_scan(wx, r, bias, state))
+            st_bytes = _nbytes(*want[1]) * (2 if state is not None else 1)
+            n_bytes = _nbytes(wx, r, bias, want[0]) + st_bytes
             # the product's multiply-adds, plus about 20 operations of
             # gating per state element and step
-            flops = 2.0 * b * t * 4 * SH * SDH * SDH + 20.0 * b * t * SH * SDH
+            flops = (2.0 * b * t * 4 * heads * dh * dh
+                     + 20.0 * b * t * heads * dh)
             timing = _report("slstm_scan", label, dtype, ms, plain, None,
                              n_bytes, flops)
+            print(f"[kernels] slstm_scan {label} {str(dtype)[6:]}: L2 "
+                  f"flushed: kernel_cold_ms={cold:.5f} (warm: {ms:.5f})")
             if i == 0 and dtype == torch.float32:
-                row = dict(SLSTM_ROW, max_abs_err=err, **timing)
+                row = dict(SLSTM_ROW, max_abs_err=err, cold_ms=cold,
+                           **timing)
+        _slstm_decode_in_place(dtype, gen)
+        _slstm_cluster_sizes(dtype, gen)
     return row
+
+
+def _slstm_decode_in_place(dtype, gen, steps: int = 200) -> None:
+    """``steps`` T=1 launches that update the state in place
+    (``out_state=state``, as every decode token does), against the plain
+    version stepping its own copy of the state."""
+    wx, r, bias, state = _slstm_inputs(1, steps, True, dtype, gen)
+    mine = tuple(s.clone() for s in state)
+    ref = tuple(s.clone() for s in state)
+    worst = 0.0
+    for i in range(steps):
+        x = wx[:, i:i + 1].contiguous()
+        hs, out = slstm_scan(x, r, bias, mine, out_state=mine)
+        if any(o is not s for o, s in zip(out, mine)):
+            raise AssertionError("slstm_scan: out_state not returned")
+        ref_hs, ref = slstm_scan_ref(x, r, bias, ref)
+        torch.cuda.synchronize()
+        for g, w in zip((hs, *mine), (ref_hs, *ref)):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"slstm_scan in-place step {i}: "
+                                     "non-finite")
+            worst = max(worst, (g - w).abs().max().item())
+        if worst > TOL[dtype]:
+            raise AssertionError(f"slstm_scan in-place step {i}: error "
+                                 f"{worst} > {TOL[dtype]}")
+    print(f"[kernels] slstm_scan {steps} decode steps in place "
+          f"{str(dtype)[6:]}: max_abs_err={worst:.3g} over hs and the "
+          f"state at every step (tol {TOL[dtype]:g})")
+
+
+def _slstm_cluster_sizes(dtype, gen) -> None:
+    """The serving shape with 16 and with 8 CTAs a cluster (another column
+    split, and R's rows held elsewhere): hs and the final state must be
+    bit-identical."""
+    for label, t, with_state in (("T=16 zero state", 16, False),
+                                 ("T=1 carried state", 1, True)):
+        wx, r, bias, state = _slstm_inputs(1, t, with_state, dtype, gen)
+        runs = [slstm_scan(wx, r, bias, state, n_cta=n) for n in (16, 8)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in
+                   zip((runs[0][0], *runs[0][1]), (runs[1][0], *runs[1][1])))
+        print(f"[kernels] slstm_scan {label} {str(dtype)[6:]}: 16 vs 8 CTAs "
+              f"a cluster: {'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError("slstm_scan: result depends on the cluster "
+                                 "size")
 
 
 def _halo_inputs(hw: int, chans: list[int], dtype, gen) -> tuple:
@@ -778,6 +866,11 @@ def _step_device_times(cfg, params, cost, n_params: int) -> None:
              lambda: srv(params, caches, last, PROMPT_LEN))
 
 
+# substrings of the port's kernel symbols, as the profiler names them
+PORT_KERNEL_SYMBOLS = ("decode_attention", "flash_attention", "slstm",
+                       "halo_conv")
+
+
 def _profile(label: str, fn, top: int = 10) -> None:
     """One warm ``fn()`` under ``torch.profiler``: its host-fenced wall
     time, the summed device time of its kernels, and the kernels that take
@@ -799,10 +892,17 @@ def _profile(label: str, fn, top: int = 10) -> None:
           f"the profiler), device busy {busy_ms:.3f} ms in "
           f"{sum(e.count for e in kernels)} kernel launches, busy share "
           f"{busy_ms / wall_ms:.3f}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:top]:
         ms = e.self_device_time_total / 1e3
         print(f"[profile] {label}:   {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% "
               f"x{e.count:<5d} {e.key[:100]}")
+    # the port's own kernels, wherever they rank
+    for rank, e in enumerate(ranked, 1):
+        if any(name in e.key for name in PORT_KERNEL_SYMBOLS):
+            ms = e.self_device_time_total / 1e3
+            print(f"[profile] {label}: port kernel #{rank}: {ms:.3f} ms "
+                  f"{100 * ms / busy_ms:.1f}% x{e.count} {e.key[:100]}")
 
 
 def _leaves(tree):
