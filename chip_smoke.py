@@ -8,18 +8,23 @@ first fault (the script exits 0 only if every phase passed):
 
   1. build   compile every CUDA kernel of the port from its ``csrc/``
              sources, one nvcc per kernel, all started together; count
-             the tensor-core instructions in the halo conv library's SASS
-             (``cuobjdump -sass``; none is a failure).
+             the tensor-core instructions in the halo conv and flash
+             attention libraries' SASS (``cuobjdump -sass``; none is a
+             failure).
   2. kernels hold each kernel against its plain PyTorch version on the card,
              in float32 and bfloat16, at the serving shapes and around
              them; time the kernel, the plain version and a library call
              where one exists (``scaled_dot_product_attention`` for the
              attention kernels, a cuDNN ``conv2d`` chain for the halo conv
              block; yardsticks the port never calls) from CUDA-graph
-             replays; decode attention and SDPA also with L2 flushed, and
-             the decode kernel also at the edges of its chunking (an empty
-             cache, S=1, S=4096, other head dims), its counters checked
-             back at 0 after every graph replay.  The sLSTM scan prints
+             replays; both attention kernels and SDPA also with L2
+             flushed.  The decode kernel also runs at the edges of its
+             chunking (an empty cache, S=1, S=4096, other head dims), its
+             counters checked back at 0 after every graph replay.  The
+             flash kernel also runs at T=1024, at phi3-mini's heads
+             (H = KV = 32, D = 128), at positions that do not start at 0,
+             with keys in a random order of positions, and at D=48, and
+             prints its plan and how many K tiles it visits.  The sLSTM scan prints
              its plan and how many of its clusters fit on the card, is
              timed with L2 flushed too, runs 200 decode steps in place
              against the plain version, and must give bit-identical
@@ -69,6 +74,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.halo_conv2d import (conv_block_ref,
                                              halo_conv_block,
                                              halo_conv_block_tiles,
@@ -199,6 +205,9 @@ def bound_ms(n_bytes: int, flops: float, peak: float) -> tuple[float, str]:
 # --------------------------------------------------------------------------- #
 
 
+TENSOR_CORE_KERNELS = ("halo_conv2d", "flash_attention")
+
+
 def phase_build() -> None:
     names = _build.all_kernels()
     t0 = time.perf_counter()
@@ -210,19 +219,21 @@ def phase_build() -> None:
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] {len(names)} kernels {names} ready in {dt:.2f} s "
           f"(built now: {sorted(logs)})")
-    # the halo conv kernel's products must be tensor-core instructions
+    # the halo conv and flash kernels' products must be tensor-core
+    # instructions
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"  # the toolkit's
-    sass = subprocess.run([str(cuobjdump), "-sass",
-                           str(_build.library_path("halo_conv2d"))],
-                          check=True, capture_output=True, text=True,
-                          timeout=300).stdout
-    mma = {op: sum(op in ln for ln in sass.splitlines())
-           for op in ("HGMMA", "HMMA")}
-    print(f"[build] halo_conv2d SASS: {mma['HGMMA']} HGMMA and "
-          f"{mma['HMMA']} HMMA instructions (cuobjdump -sass)")
-    if not mma["HGMMA"] + mma["HMMA"]:
-        raise AssertionError("halo_conv2d: no tensor-core instruction in "
-                             "its SASS")
+    for name in TENSOR_CORE_KERNELS:
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(_build.library_path(name))],
+                              check=True, capture_output=True, text=True,
+                              timeout=300).stdout
+        mma = {op: sum(op in ln for ln in sass.splitlines())
+               for op in ("HGMMA", "HMMA")}
+        print(f"[build] {name} SASS: {mma['HGMMA']} HGMMA and "
+              f"{mma['HMMA']} HMMA instructions (cuobjdump -sass)")
+        if not mma["HGMMA"] + mma["HMMA"]:
+            raise AssertionError(f"{name}: no tensor-core instruction in "
+                                 "its SASS")
 
 
 # --------------------------------------------------------------------------- #
@@ -251,12 +262,18 @@ def _decode_case(s: int, n_filled: int, pos: int, window: int, dtype, gen,
     return q, k, v, positions, pos, window
 
 
-def _flash_case(t: int, dtype, gen) -> tuple:
-    q = torch.randn((B, t, H, D), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((B, t, KV, D), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((B, t, KV, D), generator=gen, device="cuda").to(dtype)
-    p = torch.arange(t, dtype=torch.int32, device="cuda")
-    return q, k, v, p, p
+def _flash_case(t: int, dtype, gen, h: int = H, kv: int = KV, d: int = D,
+                offset: int = 0, permuted: bool = False) -> tuple:
+    """A prompt of t tokens at positions offset..offset+t-1; with
+    ``permuted`` the keys hold those positions in a random order."""
+    q = torch.randn((B, t, h, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, t, kv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, t, kv, d), generator=gen, device="cuda").to(dtype)
+    qp = offset + torch.arange(t, dtype=torch.int32, device="cuda")
+    kp = qp
+    if permuted:
+        kp = qp[torch.randperm(t, generator=gen, device="cuda")].contiguous()
+    return q, k, v, qp, kp
 
 
 def _check(name: str, label: str, got, want, dtype) -> float:
@@ -286,20 +303,8 @@ def phase_kernels() -> dict:
     main-path case (float32)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    rows = {"decode_attention": _decode_cases(gen)}
-    flash_cases = [(f"T={t} causal", t, True, 0) for t in (8, 16, 37, 128)]
-    flash_cases += [("T=128 causal window=32", 128, True, 32),
-                    ("T=37 non-causal", 37, False, 0)]
-    for dtype in (torch.float32, torch.bfloat16):
-        for label, t, causal, window in flash_cases:
-            args = _flash_case(t, dtype, gen)
-            want = flash_attention_ref(*args, causal=causal, window=window)
-            got = flash_attention(*args, causal=causal, window=window)
-            err = _check("flash_attention", label, got, want, dtype)
-            timing = _time_flash(label, args, causal, window)
-            if t == PROMPT_LEN and dtype == torch.float32:
-                rows["flash_attention"] = dict(FLASH_ROW, max_abs_err=err,
-                                               **timing)
+    rows = {"decode_attention": _decode_cases(gen),
+            "flash_attention": _flash_cases(gen)}
     rows["slstm_scan"] = _slstm_cases(gen)
     rows["halo_conv2d"] = _halo_cases(gen)
     return rows
@@ -408,27 +413,83 @@ def _time_decode(label: str, args) -> dict:
     return dict(timing, cold_ms=cold, library_cold_ms=lib_cold)
 
 
+def _flash_cases(gen) -> dict:
+    """The served prompt (T=16 at qwen2-0.5b's heads) and around it: short
+    and ragged prompts, a window, no mask, a 1024-token prompt, phi3-mini's
+    attention (H = KV = 32, D = 128) at T=16 and T=1024, positions that do
+    not start at 0, keys in a random order of positions (the tile skip on
+    unsorted positions), and the smoke configs' D=48 (zero-padded to 64).
+    Each case is checked, then timed warm and with L2 flushed."""
+    qwen2 = dict(h=H, kv=KV, d=D)
+    phi3 = dict(h=32, kv=32, d=128)
+    cases = [(f"T={t} causal", t, True, 0, qwen2) for t in (8, 16, 37, 128)]
+    cases += [("T=128 causal window=32", 128, True, 32, qwen2),
+              ("T=37 non-causal", 37, False, 0, qwen2),
+              ("T=1024 causal", 1024, True, 0, qwen2),
+              ("phi3 T=16 causal", 16, True, 0, phi3),
+              ("phi3 T=1024 causal", 1024, True, 0, phi3),
+              ("T=16 causal positions 100..115", 16, True, 0,
+               dict(qwen2, offset=100)),
+              ("T=128 causal keys permuted", 128, True, 0,
+               dict(qwen2, permuted=True)),
+              ("D=48 H=4 KV=2 T=37 causal", 37, True, 0,
+               dict(h=4, kv=2, d=48))]
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, t, causal, window, shape in cases:
+            args = _flash_case(t, dtype, gen, **shape)
+            want = flash_attention_ref(*args, causal=causal, window=window)
+            got = flash_attention(*args, causal=causal, window=window)
+            err = _check("flash_attention", label, got, want, dtype)
+            timing = _time_flash(label, args, causal, window)
+            if label == f"T={PROMPT_LEN} causal" and dtype == torch.float32:
+                row = dict(FLASH_ROW, max_abs_err=err, **timing)
+    return row
+
+
 def _time_flash(label: str, args, causal: bool, window: int) -> dict:
     q, k, v, qp, kp = args
+    b, t, h, d = q.shape
     mask = None
-    n_pairs = B * qp.shape[0] * kp.shape[0]
+    n_pairs = b * qp.shape[0] * kp.shape[0]
     if causal:
         mask = kp[None, :] <= qp[:, None]
         if window > 0:
             mask &= kp[None, :] > qp[:, None] - window
-        n_pairs = B * int(mask.sum())
+        n_pairs = b * int(mask.sum())
     qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms = device_ms(lambda: flash_attention(q, k, v, qp, kp, causal=causal,
-                                           window=window))
+
+    def kernel():
+        return flash_attention(q, k, v, qp, kp, causal=causal, window=window)
+
+    def library():
+        return sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+    ms = device_ms(kernel)
     plain = device_ms(lambda: flash_attention_ref(q, k, v, qp, kp,
                                                   causal=causal,
                                                   window=window))
-    lib = device_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask,
-                                 enable_gqa=True))
+    lib = device_ms(library)
+    cold, lib_cold = cold_ms(kernel), cold_ms(library)
     n_bytes = _nbytes(q, k, v, qp, kp) + _nbytes(q)
-    return _report("flash_attention", label, q.dtype, ms, plain, lib,
-                   n_bytes, 4.0 * H * D * n_pairs)
+    timing = _report("flash_attention", label, q.dtype, ms, plain, lib,
+                     n_bytes, 4.0 * h * d * n_pairs)
+    s, kv = k.shape[1], k.shape[2]
+    plan = flash_ops.plan_flash(b, t, s, h, kv, d, q.dtype)
+    qpl, kpl = qp.tolist(), kp.tolist()
+    visited = sum(len(flash_ops.visit_list(plan, qpl, kpl, h // kv, by,
+                                           causal, window))
+                  for by in range(plan.n_row_tiles))
+    print(f"[kernels] flash_attention {label} {str(q.dtype)[6:]}: L2 "
+          f"flushed: kernel_cold_ms={cold:.5f} library_cold_ms="
+          f"{lib_cold:.5f} (warm: {ms:.5f}, {lib:.5f}); plan {plan.rows} "
+          f"rows a CTA in {plan.key_groups} key group(s), {plan.threads} "
+          f"threads, grid {plan.grid}, {plan.tile_keys}-key tiles, "
+          f"{plan.smem_bytes} B dynamic smem; K tiles visited {visited} of "
+          f"{plan.n_row_tiles * plan.n_key_tiles} (per KV head and batch "
+          "row)")
+    return dict(timing, cold_ms=cold, library_cold_ms=lib_cold)
 
 
 SLSTM_ROW = {"name": "slstm_scan", "route": "cuda",

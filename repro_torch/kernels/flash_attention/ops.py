@@ -2,10 +2,23 @@
 
 CPU tensors take the plain version; CUDA tensors launch the kernel or
 raise.  ``flash_attention.launches`` counts kernel launches.
+
+The kernel folds each GQA group into the rows of one CTA: KV head ``kvh``
+has M = G x T rows, row r being query head ``kvh * G + r // T`` at token
+``r % T``, and a CTA owns ``plan.rows`` of them.  Where the prompt is long,
+the CTA's warps form two key groups over the same rows, which walk
+alternate K tiles and merge at the end.  :func:`plan_flash` is that cut,
+with the kernel's width class, K tile and shared memory; the tile-skip rule
+and the CTA's walk over K tiles are stated here as the kernel runs them
+(:func:`tile_rule`, :func:`visit_list`).  The kernels' shared-memory limit
+is set once per device.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -13,14 +26,177 @@ from .. import _build
 from .ref import flash_attention_ref
 
 NAME = "flash_attention"
+SM_COUNT = 132              # H100 SXM
+SMEM_LIMIT = 232448         # kMaxSmem: dynamic shared memory a CTA (227 KB)
+MAX_ROWS = 128              # kMaxRows: 8 warps of 16 rows
+MAX_THREADS = 2 * MAX_ROWS  # rows x 2 threads x key groups
+SPLIT_CLASS = 64            # the width class built with two key groups
+MAX_HEAD_DIM = 256          # kMaxHeadDim
+D_CLASSES = (64, 128, 256)  # kDMax: D is padded up to a class's instance
+# kBK and kStages: keys a K tile and stages of the ring, by class
+TILE_KEYS = {torch.float32: (32, 32, 16), torch.bfloat16: (64, 64, 32)}
+STAGES = {torch.float32: (2, 2, 2), torch.bfloat16: (3, 2, 2)}
+# f32 split passes (A piece, B piece), small products first (pass_a/pass_b)
+PASSES = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+
+# flash_attention_launch: q, k, v, q_pos, k_pos, out; B, T, S, H, KV, D,
+# causal, window, dtype, rows, ks, smem; stream
+ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+
+_lib_fns = None
+_set_up: set[int] = set()                  # devices whose limits are set
 
 
-def _launcher():
-    fn = _build.load(NAME).flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+class FlashPlan(NamedTuple):
+    rows: int                       # rows a CTA, 16 a warp of a key group
+    key_groups: int                 # 1, or 2 walking alternate K tiles
+    threads: int                    # 2 x rows x key_groups
+    d_class: int                    # D padded up to the kernel's width class
+    tile_keys: int                  # keys a K tile (BK)
+    stages: int                     # stages of the cp.async ring
+    n_key_tiles: int                # ceil(S / BK)
+    n_row_tiles: int                # ceil(M / rows)
+    grid: tuple[int, int, int]      # (KV x B, row tiles, 1)
+    smem_bytes: int                 # dynamic shared memory a CTA
+
+
+def smem_bytes(dtype: torch.dtype, d_class: int, rows: int,
+               n_key_tiles: int, key_groups: int) -> int:
+    """Q planes, the ring of K/V tiles with their positions (which the key
+    groups' merge reuses), in f32 the split tiles, the tile flags and the
+    visit list (``layout`` in the kernel)."""
+    c = D_CLASSES.index(d_class)
+    f32 = dtype == torch.float32
+    bk, st = TILE_KEYS[dtype][c], STAGES[dtype][c]
+    rs = (d_class + 8) * 2                      # bytes a bf16 row
+    raw = d_class * 4 if f32 else rs            # bytes a staged row
+    planes = 3 if f32 else 1
+    ring = st * key_groups * (2 * bk * raw + bk * 4)
+    merge = 2 * rows * (d_class // 2 + 4) * 4 if key_groups > 1 else 0
+    r16 = lambda x: -(-x // 16) * 16            # noqa: E731
+    return (planes * rows * rs + max(ring, merge)
+            + key_groups * (6 * bk * rs if f32 else 0) + r16(n_key_tiles)
+            + r16(4 * n_key_tiles) + 16)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_flash(b: int, t: int, s: int, h: int, kv: int, d: int,
+               dtype: torch.dtype) -> FlashPlan:
+    """Two key groups at the 64 width class where the prompt spans two K
+    tiles or more and the two-group CTAs (64 rows, 256 threads, one an SM
+    by registers) still fit in one wave over the card's SMs; one group
+    otherwise.  Two groups halve the longest CTA's walk and double the
+    threads that copy, which pays on small grids; on larger ones a second
+    CTA an SM pays more (PERF.md has the measurements).  128 rows a CTA
+    where that still gives a wave of CTAs and there is one key group, else
+    64, never fewer (a CTA's threads also copy its K/V tiles); halved while
+    the shared memory does not fit.  The width class, K tile and stages
+    follow from D and the dtype."""
+    if dtype not in TILE_KEYS:
+        raise ValueError(f"{NAME}: dtype {dtype} not supported")
+    if min(b, t, s, h, kv, d) < 1 or h % kv:
+        raise ValueError(f"{NAME}: no plan for B={b} T={t} S={s} H={h} "
+                         f"KV={kv} D={d}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{NAME}: head dim {d} outside 1..{MAX_HEAD_DIM}")
+    m = h // kv * t
+    c = next(i for i, dc in enumerate(D_CLASSES) if d <= dc)
+    bk = TILE_KEYS[dtype][c]
+    n_kt = -(-s // bk)
+    # the threads (two a row) copy rows in 16-byte units of 4 columns of Q:
+    # at the 256 class a row is 64 of them, so rows go by 32
+    step = max(16, D_CLASSES[c] // 8)
+    split = D_CLASSES[c] == SPLIT_CLASS and n_kt >= 2 and \
+        math.ceil(m / 64) * kv * b <= SM_COUNT
+    for ks in (2, 1) if split else (1,):
+        rows = MAX_ROWS if ks == 1 and \
+            math.ceil(m / MAX_ROWS) * kv * b >= SM_COUNT else 64
+        while rows > step and smem_bytes(dtype, D_CLASSES[c], rows, n_kt,
+                                         ks) > SMEM_LIMIT:
+            rows = max(step, rows // 2 // step * step)
+        smem = smem_bytes(dtype, D_CLASSES[c], rows, n_kt, ks)
+        if smem <= SMEM_LIMIT:
+            break
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{NAME}: S={s} needs {smem} bytes of shared "
+                         f"memory a CTA, over {SMEM_LIMIT}")
+    n_rt = -(-m // rows)
+    if n_rt > 65535:
+        raise ValueError(f"{NAME}: {n_rt} row tiles of {rows}, over 65535")
+    return FlashPlan(rows, ks, 2 * rows * ks, D_CLASSES[c], bk,
+                     STAGES[dtype][c], n_kt, n_rt, (kv * b, n_rt, 1), smem)
+
+
+def query_rows(plan: FlashPlan, t: int, group: int, by: int, kvh: int):
+    """(query head, token) of each row that CTA (kvh + KV x batch, by)
+    computes: row tiles run latest first, rows past M = group x t are
+    idle."""
+    m0 = (plan.n_row_tiles - 1 - by) * plan.rows
+    return [(kvh * group + r // t, r % t)
+            for r in range(m0, min(m0 + plan.rows, group * t))]
+
+
+def tile_rule(qp_min: int, qp_max: int, kp_min: int, kp_max: int,
+              whole: bool, causal: bool, window: int) -> int:
+    """0: no pair of the K tile is valid for the CTA's rows (skipped, never
+    loaded); 1: masked pair by pair; 2: every pair valid.  ``whole``: no key
+    of the tile lies past S.  The kernel's ``tile_rule``."""
+    if not causal:
+        return 2 if whole else 1
+    if kp_min > qp_max:
+        return 0
+    if window > 0 and kp_max <= qp_min - window:
+        return 0
+    every = kp_max <= qp_min and (window <= 0 or kp_min > qp_max - window)
+    return 2 if whole and every else 1
+
+
+def visit_list(plan: FlashPlan, q_pos: Sequence[int], k_pos: Sequence[int],
+               group: int, by: int, causal: bool,
+               window: int) -> list[tuple[int, bool]]:
+    """The K tiles that the CTAs of row tile ``by`` visit, in order, each
+    with whether it is taken unmasked: the kernel's prologue.  Key group g
+    takes visits g, g + key_groups, ..."""
+    t, s, bk = len(q_pos), len(k_pos), plan.tile_keys
+    m0 = (plan.n_row_tiles - 1 - by) * plan.rows
+    qps = [q_pos[r % t] for r in range(m0, min(m0 + plan.rows, group * t))]
+    out = []
+    for j in range(plan.n_key_tiles):
+        kps = k_pos[j * bk:(j + 1) * bk]
+        f = tile_rule(min(qps), max(qps), min(kps), max(kps),
+                      (j + 1) * bk <= s, causal, window)
+        if f:
+            out.append((j, f == 2))
+    return out
+
+
+def _lib():
+    global _lib_fns
+    if _lib_fns is None:
+        lib = _build.load(NAME)
+        launch = lib.flash_attention_launch
+        launch.argtypes = ARGTYPES
+        launch.restype = ctypes.c_int
+        setup = lib.flash_attention_setup
+        setup.argtypes = []
+        setup.restype = ctypes.c_int
+        _lib_fns = (launch, setup)
+    return _lib_fns
+
+
+def _set_limits(device: torch.device) -> None:
+    """The kernels' shared-memory limit, once per device and outside
+    CUDA-graph capture (a first call before capture sets it)."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx in _set_up:
+        return
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{NAME}: call once on cuda:{idx} outside "
+                           "CUDA-graph capture before capturing")
+    with torch.cuda.device(idx):
+        _build.check(_lib()[1](), NAME)
+    _set_up.add(idx)
 
 
 def flash_attention(
@@ -44,13 +220,16 @@ def flash_attention(
         shapes_ok=(k.shape == (b, s, kv, d) and v.shape == k.shape
                    and q_pos.shape == (t,) and k_pos.shape == (s,)
                    and h % kv == 0),
-        head_dim=d)
+        head_dim=d, max_head_dim=MAX_HEAD_DIM)
+    plan = plan_flash(b, t, s, h, kv, d, q.dtype)
+    _set_limits(q.device)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _launcher()(
+        err = _lib()[0](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             k_pos.data_ptr(), out.data_ptr(), b, t, s, h, kv, d,
             int(bool(causal)), int(window), _build.DTYPE_CODES[q.dtype],
+            plan.rows, plan.key_groups, plan.smem_bytes,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, NAME)
     flash_attention.launches += 1

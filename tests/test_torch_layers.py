@@ -256,11 +256,20 @@ def test_plain_flash_matches_attention_ref_mha(causal, window):
     _close(got, want.transpose(0, 2, 1, 3))
 
 
-@pytest.mark.parametrize("t,window", [(13, 0), (13, 4), (37, 0)])
-def test_plain_flash_matches_model_gqa(t, window):
-    """GQA at ragged T against the JAX model's _gqa_scores_to_out."""
+@pytest.mark.parametrize("t,window,h,kv,d", [
+    pytest.param(13, 0, 14, 2, 64, id="13-0"),
+    pytest.param(13, 4, 14, 2, 64, id="13-4"),
+    pytest.param(37, 0, 14, 2, 64, id="37-0"),
+    pytest.param(37, 0, 4, 4, 48, id="37-0-H4-KV4-D48"),
+    pytest.param(37, 4, 4, 4, 48, id="37-4-H4-KV4-D48"),
+    pytest.param(37, 0, 4, 4, 128, id="37-0-H4-KV4-D128"),
+    pytest.param(13, 4, 4, 4, 128, id="13-4-H4-KV4-D128"),
+])
+def test_plain_flash_matches_model_gqa(t, window, h, kv, d):
+    """GQA at ragged T against the JAX model's _gqa_scores_to_out; also at
+    the head dims 48 and 128 with one query head per KV head."""
     rng = _rng(9)
-    b, h, kv, d = 2, 14, 2, 64
+    b = 2
     q = _randn(rng, b, t, h, d)
     k, v = _randn(rng, b, t, kv, d), _randn(rng, b, t, kv, d)
     p = np.arange(t, dtype=np.int32)
