@@ -19,12 +19,16 @@ first fault (the script exits 0 only if every phase passed):
              block; yardsticks the port never calls) from CUDA-graph
              replays; both attention kernels and SDPA also with L2
              flushed.  The decode kernel also runs at the edges of its
-             chunking (an empty cache, S=1, S=4096, other head dims), its
-             counters checked back at 0 after every graph replay.  The
-             flash kernel also runs at T=1024, at phi3-mini's heads
-             (H = KV = 32, D = 128), at positions that do not start at 0,
-             with keys in a random order of positions, and at D=48, and
-             prints its plan and how many K tiles it visits.  The sLSTM scan prints
+             chunking (an empty cache, S=1, S=4096, other head dims) and
+             at the heads of every model below, its counters checked back
+             at 0 after every graph replay.  The flash kernel also runs at
+             T=1024, at deepseek-7b's heads (H = KV = 32, D = 128),
+             phi3-mini's (D = 96), llava-next-34b's over its 2896-token
+             prompt (H=56, KV=8, D=128), seamless's unmasked at T=16 and
+             T=1 over 16 frames (its cross-attention), at positions that
+             do not start at 0, with keys in a random order of positions,
+             and at D=48, and prints its plan and how many K tiles it
+             visits.  The sLSTM scan prints
              its plan and how many of its clusters fit on the card, is
              timed with L2 flushed too, runs 200 decode steps in place
              against the plain version, and must give bit-identical
@@ -34,18 +38,31 @@ first fault (the script exits 0 only if every phase passed):
              (its standalone phase); its bound counts the bf16
              tensor-core passes its split operands take.
   3. serve   for each served model with random weights from seed 0 (full
-             width; qwen2-0.5b, then xlstm-1.3b): ``measure_cost_model``,
-             then ``PreemptiveServingEngine`` with 4 slices x 4 units
-             serving 24 requests in a 2:1 HP:LP mix.  Checks every HP
-             request done, every done LP request holding its tokens, and
-             each kernel of the model launched exactly once per layer per
+             width and depth; qwen2-0.5b, phi3-mini-3.8b, then
+             xlstm-1.3b): ``measure_cost_model``, then
+             ``PreemptiveServingEngine`` with 4 slices x 4 units serving
+             24 requests in a 2:1 HP:LP mix.  Checks every HP request
+             done, every done LP request holding its tokens, and each
+             kernel of the model launched exactly once per layer per
              prefill or decode token; then holds the card's prefill and
-             decode logits against the plain path (qwen2: the CPU; xLSTM:
-             the full model with the sLSTM plain version swapped in on the
-             card, and one full-width superblock on the CPU).  Before the
-             engine run it times one prefill and one decode step by CUDA-graph
-             replay and records one of each under ``torch.profiler``,
-             printing the kernels that take the most device time.
+             decode logits against the plain path (the attention models:
+             the CPU; xLSTM: the full model with the sLSTM plain version
+             swapped in on the card, and one full-width superblock on the
+             CPU).  Before the engine run it times one prefill and one
+             decode step by CUDA-graph replay and records one of each
+             under ``torch.profiler``, printing the kernels that take the
+             most device time.
+  4. model   the models the engine does not serve (it passes tokens only):
+             deepseek-7b, seamless-m4t-medium (12 encoder + 12
+             cross-attending decoder layers over 16 frames) and
+             llava-next-34b (2880 patches before the prompt; 12 of its 60
+             layers, all 60 do not fit one card in f32), each at full
+             width: the cost model, the step device times at the model's
+             real positions with their ``[profile]`` lines, and one
+             prefill with 8 decode tokens, whose kernel launches must be
+             exact and whose logits are held against both kernels' plain
+             versions on the card and against the CPU (llava: at one layer
+             and 64 patches).
 
 The last lines are the card's name and power limit, one JSON object
 describing each kernel, and ``{"ok": true, "device": {...}}``.  Without a
@@ -58,6 +75,7 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from dataclasses import replace
 from pathlib import Path
 
@@ -84,6 +102,7 @@ from repro_torch.kernels.slstm_scan import ops as slstm_ops
 from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_ref
 from repro_torch.models import model as M
 from repro_torch.models.config import StageDef
+from repro_torch.models.layers import attention as A
 from repro_torch.models.layers import xlstm as X
 from repro_torch.serving.cost_model import measure_cost_model
 from repro_torch.serving.engine import (PreemptiveServingEngine,
@@ -113,7 +132,7 @@ HALO_ROUND = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8}
 # in another order in cuBLAS than in the CPU's BLAS.
 LOGIT_TOL = 2e-4
 
-ARCHS = ("qwen2-0.5b", "xlstm-1.3b")
+ARCHS = ("qwen2-0.5b", "phi3-mini-3.8b", "xlstm-1.3b")   # served
 XLSTM_PARAMS = 3_503_728_976          # leaves of the JAX xlstm-1.3b tree
 B, H, KV, D = 1, 14, 2, 64            # qwen2-0.5b attention at batch 1
 SH, SDH = 4, 512                      # xlstm-1.3b sLSTM heads, head dim
@@ -242,14 +261,15 @@ def phase_build() -> None:
 
 
 def _decode_case(s: int, n_filled: int, pos: int, window: int, dtype, gen,
-                 d: int = D, alternate: bool = False) -> tuple:
-    """q [B,H,d], cache [B,S,KV,d] and its slot positions.  A rotating
+                 d: int = D, alternate: bool = False, h: int = H,
+                 kv: int = KV) -> tuple:
+    """q [B,h,d], cache [B,S,kv,d] and its slot positions.  A rotating
     cache (window > 0) holds, in slot j, the newest position p <= pos with
     p % S == j; a contiguous one holds 0..n_filled-1 and then -1, and with
     ``alternate`` only its odd slots (so a chunk's first slot is empty)."""
-    q = torch.randn((B, H, d), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((B, s, KV, d), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((B, s, KV, d), generator=gen, device="cuda").to(dtype)
+    q = torch.randn((B, h, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, s, kv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, s, kv, d), generator=gen, device="cuda").to(dtype)
     slots = torch.arange(s, device="cuda")
     if window > 0:
         row = pos - ((pos - slots) % s)
@@ -263,14 +283,21 @@ def _decode_case(s: int, n_filled: int, pos: int, window: int, dtype, gen,
 
 
 def _flash_case(t: int, dtype, gen, h: int = H, kv: int = KV, d: int = D,
-                offset: int = 0, permuted: bool = False) -> tuple:
+                offset: int = 0, permuted: bool = False,
+                s: int | None = None) -> tuple:
     """A prompt of t tokens at positions offset..offset+t-1; with
-    ``permuted`` the keys hold those positions in a random order."""
+    ``permuted`` the keys hold those positions in a random order.  With
+    ``s``, t queries over s other keys at positions 0..s-1, as
+    cross-attention gives them (unmasked)."""
     q = torch.randn((B, t, h, d), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((B, t, kv, d), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((B, t, kv, d), generator=gen, device="cuda").to(dtype)
+    n_keys = t if s is None else s
+    k = torch.randn((B, n_keys, kv, d), generator=gen,
+                    device="cuda").to(dtype)
+    v = torch.randn((B, n_keys, kv, d), generator=gen,
+                    device="cuda").to(dtype)
     qp = offset + torch.arange(t, dtype=torch.int32, device="cuda")
-    kp = qp
+    kp = qp if s is None else torch.arange(s, dtype=torch.int32,
+                                           device="cuda")
     if permuted:
         kp = qp[torch.randperm(t, generator=gen, device="cuda")].contiguous()
     return q, k, v, qp, kp
@@ -336,19 +363,32 @@ def _decode_cases(gen) -> dict:
     """The engine's cache (S=256) with a served request's 40 positions,
     then around it: a ragged S, a rotating window cache, an empty cache
     (exact zeros), S=1, a long cache (many chunks, a ragged last one),
-    valid slots alternating with empty ones, D=128, and head dims that take
-    the kernel's scalar loads (D=60 in bf16, D=63).  Each case is checked
-    again after its CUDA-graph timing replays."""
-    cases = [("S=256 filled=40 (main path)", 256, 40, 39, 0, D, False),
-             ("S=200 filled=200", 200, 200, 199, 0, D, False),
-             ("S=64 window=64 rotated pos=300", 64, 0, 300, 64, D, False),
-             ("S=256 empty", 256, 0, 39, 0, D, False),
-             ("S=1", 1, 1, 0, 0, D, False),
-             ("S=4096 filled=3000", 4096, 3000, 2999, 0, D, False),
-             ("S=256 filled=200 odd slots only", 256, 200, 199, 0, D, True),
-             ("S=256 filled=40 D=128", 256, 40, 39, 0, 128, False),
-             ("S=256 filled=40 D=60", 256, 40, 39, 0, 60, False),
-             ("S=256 filled=40 D=63", 256, 40, 39, 0, 63, False)]
+    valid slots alternating with empty ones, D=128, head dims that take
+    the kernel's scalar loads (D=60 in bf16, D=63), and the heads of the
+    other served and run models (phi3-mini H=KV=32 D=96, deepseek-7b
+    H=KV=32 D=128, llava-next-34b H=56 KV=8 D=128, seamless H=KV=16 D=64).
+    Each case is checked again after its CUDA-graph timing replays."""
+    phi3, deepseek = dict(h=32, kv=32, d=96), dict(h=32, kv=32, d=128)
+    llava, seamless = dict(h=56, kv=8, d=128), dict(h=16, kv=16, d=64)
+    cases = [("S=256 filled=40 (main path)", 256, 40, 39, 0, {}, False),
+             ("S=200 filled=200", 200, 200, 199, 0, {}, False),
+             ("S=64 window=64 rotated pos=300", 64, 0, 300, 64, {}, False),
+             ("S=256 empty", 256, 0, 39, 0, {}, False),
+             ("S=1", 1, 1, 0, 0, {}, False),
+             ("S=4096 filled=3000", 4096, 3000, 2999, 0, {}, False),
+             ("S=256 filled=200 odd slots only", 256, 200, 199, 0, {}, True),
+             ("S=256 filled=40 D=128", 256, 40, 39, 0, dict(d=128), False),
+             ("S=256 filled=40 D=60", 256, 40, 39, 0, dict(d=60), False),
+             ("S=256 filled=40 D=63", 256, 40, 39, 0, dict(d=63), False),
+             ("phi3-mini heads S=256 filled=40", 256, 40, 39, 0, phi3,
+              False),
+             ("deepseek-7b heads S=256 filled=40", 256, 40, 39, 0, deepseek,
+              False),
+             ("llava heads S=256 filled=40", 256, 40, 39, 0, llava, False),
+             ("llava heads S=3136 filled=2897 (its decode at 2896)", 3136,
+              2897, 2896, 0, llava, False),
+             ("seamless heads S=256 filled=40", 256, 40, 39, 0, seamless,
+              False)]
     plan = decode_ops.plan_split(B, CACHE_LEN, H, KV, D)
     smem = _build.load("decode_attention").decode_attention_smem_bytes(
         H, KV, D, plan.chunk, 0)
@@ -357,8 +397,10 @@ def _decode_cases(gen) -> dict:
           "a CTA (f32)")
     row = None
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (label, s, n_filled, pos, window, d, alt) in enumerate(cases):
-            args = _decode_case(s, n_filled, pos, window, dtype, gen, d, alt)
+        for i, (label, s, n_filled, pos, window, shape, alt) in \
+                enumerate(cases):
+            args = _decode_case(s, n_filled, pos, window, dtype, gen,
+                                alternate=alt, **shape)
             want = decode_attention_ref(*args[:5], window=window)
             got = decode_attention(*args[:5], window=window)
             err = _check("decode_attention", label, got, want, dtype)
@@ -415,19 +457,33 @@ def _time_decode(label: str, args) -> dict:
 
 def _flash_cases(gen) -> dict:
     """The served prompt (T=16 at qwen2-0.5b's heads) and around it: short
-    and ragged prompts, a window, no mask, a 1024-token prompt, phi3-mini's
-    attention (H = KV = 32, D = 128) at T=16 and T=1024, positions that do
-    not start at 0, keys in a random order of positions (the tile skip on
-    unsorted positions), and the smoke configs' D=48 (zero-padded to 64).
-    Each case is checked, then timed warm and with L2 flushed."""
+    and ragged prompts, a window, no mask, a 1024-token prompt,
+    deepseek-7b's attention (H = KV = 32, D = 128) at T=16 and T=1024,
+    phi3-mini's (H = KV = 32, D = 96) at T=16, llava-next-34b's (H=56,
+    KV=8, D=128) over its 2880-patch prefix and 16 tokens, seamless's
+    (H = KV = 16, D = 64) unmasked at T=16 (its encoder, and its
+    cross-attention in prefill) and T=1 (cross-attention of a decode token)
+    over 16 frames, positions that do not start at 0, keys in a random
+    order of positions (the tile skip on unsorted positions), and the smoke
+    configs' D=48 (zero-padded to 64).  Each case is checked, then timed
+    warm and with L2 flushed."""
     qwen2 = dict(h=H, kv=KV, d=D)
-    phi3 = dict(h=32, kv=32, d=128)
+    deepseek = dict(h=32, kv=32, d=128)
+    seamless = dict(h=16, kv=16, d=64, s=PROMPT_LEN)
     cases = [(f"T={t} causal", t, True, 0, qwen2) for t in (8, 16, 37, 128)]
     cases += [("T=128 causal window=32", 128, True, 32, qwen2),
               ("T=37 non-causal", 37, False, 0, qwen2),
               ("T=1024 causal", 1024, True, 0, qwen2),
-              ("phi3 T=16 causal", 16, True, 0, phi3),
-              ("phi3 T=1024 causal", 1024, True, 0, phi3),
+              ("deepseek-7b heads T=16 causal", 16, True, 0, deepseek),
+              ("deepseek-7b heads T=1024 causal", 1024, True, 0, deepseek),
+              ("phi3-mini heads (D=96) T=16 causal", 16, True, 0,
+               dict(h=32, kv=32, d=96)),
+              ("llava heads T=2896 causal", 2896, True, 0,
+               dict(h=56, kv=8, d=128)),
+              ("seamless heads T=16 S=16 non-causal", 16, False, 0,
+               seamless),
+              ("seamless heads T=1 S=16 non-causal (cross, decode)", 1,
+               False, 0, seamless),
               ("T=16 causal positions 100..115", 16, True, 0,
                dict(qwen2, offset=100)),
               ("T=128 causal keys permuted", 128, True, 0,
@@ -466,11 +522,13 @@ def _time_flash(label: str, args, causal: bool, window: int) -> dict:
     def library():
         return sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
 
-    ms = device_ms(kernel)
+    calls = 50 if t * kp.shape[0] <= 1024 * 1024 else 5
+    ms = device_ms(kernel, calls=calls)
     plain = device_ms(lambda: flash_attention_ref(q, k, v, qp, kp,
                                                   causal=causal,
-                                                  window=window))
-    lib = device_ms(library)
+                                                  window=window),
+                      calls=calls)
+    lib = device_ms(library, calls=calls)
     cold, lib_cold = cold_ms(kernel), cold_ms(library)
     n_bytes = _nbytes(q, k, v, qp, kp) + _nbytes(q)
     timing = _report("flash_attention", label, q.dtype, ms, plain, lib,
@@ -769,8 +827,10 @@ def _halo_cases(gen) -> dict:
     return row
 
 
+
+
 # --------------------------------------------------------------------------- #
-# Phase 3: serve full-width qwen2-0.5b and xlstm-1.3b                         #
+# Phase 3: serve full-width qwen2-0.5b, phi3-mini-3.8b and xlstm-1.3b         #
 # --------------------------------------------------------------------------- #
 
 
@@ -779,17 +839,24 @@ KERNELS = {"decode_attention": decode_attention,
            "halo_conv2d": halo_conv_block_tiles}
 
 
-def _n_layers(cfg, mixer: str) -> int:
-    return sum(st.repeats for st in cfg.stages for ld in st.pattern
+def _n_layers(stages, mixer: str) -> int:
+    return sum(st.repeats for st in stages for ld in st.pattern
                if ld.mixer == mixer)
 
 
 def _expected_launches(cfg, prefills: int, tokens: int) -> dict[str, int]:
-    """One launch per layer per prefill (flash, sLSTM scan over the prompt)
-    and per decode token (decode attention, one sLSTM step)."""
-    attn, slstm = _n_layers(cfg, "attn"), _n_layers(cfg, "slstm")
+    """One launch per layer per prefill (flash for decoder and encoder
+    self-attention and for cross-attention, sLSTM scan over the prompt) and
+    per decode token (decode attention, flash for cross-attention, one
+    sLSTM step)."""
+    attn, slstm = _n_layers(cfg.stages, "attn"), _n_layers(cfg.stages,
+                                                          "slstm")
+    enc = _n_layers(cfg.encoder_stages, "attn")
+    cross = sum(st.repeats for st in cfg.stages for ld in st.pattern
+                if ld.cross_attn)
     return {"decode_attention": attn * tokens,
-            "flash_attention": attn * prefills,
+            "flash_attention": (attn + enc + cross) * prefills
+            + cross * tokens,
             "slstm_scan": slstm * (prefills + tokens), "halo_conv2d": 0}
 
 
@@ -798,6 +865,15 @@ def _counted(fn, counter: list):
         counter[0] += 1
         return fn(*a, **kw)
     return wrapped
+
+
+def _reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def _launches() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def phase_serve(arch: str) -> dict[str, int]:
@@ -810,8 +886,8 @@ def phase_serve(arch: str) -> dict[str, int]:
     n_params = sum(t.numel() for t in _leaves(params))
     torch.cuda.synchronize()
     print(f"[serve] {arch}: {cfg.n_layers} layers d={cfg.d_model} "
-          f"H={cfg.n_heads} KV={cfg.n_kv_heads} d_ff={cfg.d_ff} "
-          f"vocab={cfg.padded_vocab}, {n_params} params "
+          f"H={cfg.n_heads} KV={cfg.n_kv_heads} D={cfg.resolved_head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.padded_vocab}, {n_params} params "
           f"({cfg.param_dtype}) initialised in "
           f"{time.perf_counter() - t0:.2f} s")
     if arch == "xlstm-1.3b" and n_params != XLSTM_PARAMS:
@@ -823,7 +899,12 @@ def phase_serve(arch: str) -> dict[str, int]:
                               cache_len=CACHE_LEN, reps=3, device="cuda")
     print(f"[serve] {arch} cost model in {time.perf_counter() - t0:.2f} s: "
           f"prefill {cost.prefill[1]}, decode {cost.decode}")
-    _step_device_times(cfg, params, cost, n_params)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN),
+                                     generator=gen, device="cuda")}
+    _step_device_times("[serve]", cfg, params, cost, batch, CACHE_LEN,
+                       PROMPT_LEN)
     _counters_at_rest(f"{arch} step replays")
     net = engine_network_config(cost, LP_TOKENS)
     eng = PreemptiveServingEngine(cfg, params, cost, device="cuda",
@@ -852,13 +933,12 @@ def phase_serve(arch: str) -> dict[str, int]:
         reqs.append(req)
         eng.q.push(arrive, lambda r=req: eng.submit(r))
 
-    for fn in KERNELS.values():
-        fn.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     m = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    launches = _launches()
 
     hp_reqs = [r for r in reqs if r.priority == Priority.HIGH]
     lp_done = [r for r in reqs
@@ -892,39 +972,38 @@ def phase_serve(arch: str) -> dict[str, int]:
     if arch == "xlstm-1.3b":
         _check_xlstm_logits(cfg, params, reqs[0].prompt)
     else:
-        _check_against_cpu(cfg, params, reqs[0].prompt)
+        _check_against_cpu(cfg, params, {"tokens": reqs[0].prompt})
     return launches
 
 
-def _step_device_times(cfg, params, cost, n_params: int) -> None:
-    """Device time of one prefill and one decode step from CUDA-graph
-    replay (no host gaps), beside the host-fenced times the cost model
-    measured at the same shapes (degree 2 is the measured decode time):
+def _step_device_times(tag: str, cfg, params, cost, batch: dict,
+                       cache_len: int, pos: int, calls: int = 3) -> None:
+    """Device time of one prefill of ``batch`` and one decode step at
+    ``pos`` from CUDA-graph replay (no host gaps), beside the host-fenced
+    times the cost model measured (degree 2 is the measured decode time):
     the gap is host dispatch, during which the device idles.  Then one of
     each step under the profiler, for the breakdown by kernel."""
-    pre = make_prefill_step(cfg, CACHE_LEN, device="cuda")
+    pre = make_prefill_step(cfg, cache_len, device="cuda")
     srv = make_serve_step(cfg, device="cuda")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(2)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN),
-                                     generator=gen, device="cuda")}
     nxt, caches = pre(params, batch)
     last = nxt[:, None]
+    t = M.prefix_len(cfg) + batch["tokens"].shape[1]
     steps = (("prefill", cost.prefill[1].mean_s,
-              device_ms(lambda: pre(params, batch), calls=3, reps=3)),
+              device_ms(lambda: pre(params, batch), calls=calls, reps=3)),
              ("decode", cost.decode[2].mean_s,
-              device_ms(lambda: srv(params, caches, last, PROMPT_LEN),
-                        calls=3, reps=3)))
-    weights_ms = 1e3 * 4 * n_params / HBM_BYTES_PER_S
+              device_ms(lambda: srv(params, caches, last, pos), calls=calls,
+                        reps=3)))
+    weights_ms = 1e3 * _nbytes(*_leaves(params)) / HBM_BYTES_PER_S
     for name, host_s, dev_ms in steps:
-        print(f"[serve] {name} step T={PROMPT_LEN}: host-fenced "
+        at = f"T={t}" if name == "prefill" else f"pos={pos}"
+        print(f"{tag} {cfg.name} {name} step {at}: host-fenced (cost model) "
               f"{1e3 * host_s:.3f} ms, device {dev_ms:.3f} ms "
               f"(graph replay), device idle share "
               f"{1 - dev_ms / (1e3 * host_s):.3f}; weights read once "
               f"{weights_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12} TB/s")
-    _profile(f"{cfg.name} prefill T={PROMPT_LEN}", lambda: pre(params, batch))
-    _profile(f"{cfg.name} decode",
-             lambda: srv(params, caches, last, PROMPT_LEN))
+    _profile(f"{cfg.name} prefill T={t}", lambda: pre(params, batch))
+    _profile(f"{cfg.name} decode pos={pos}",
+             lambda: srv(params, caches, last, pos))
 
 
 # substrings of the port's kernel symbols, as the profiler names them
@@ -976,22 +1055,33 @@ def _tree_to(tree, device):
             for k, v in tree.items()}
 
 
-def _logits(cfg, params, prompt, dev) -> tuple:
-    """Prefill and one decode step from the same weights and prompt."""
-    pre, caches = M.prefill(params, cfg, {"tokens": prompt.to(dev)},
-                            CACHE_LEN)
-    nxt = prompt[:, -1:].to(dev)
-    dec, _ = M.decode_step(params, cfg, caches, nxt, prompt.shape[1])
-    return pre.float().cpu(), dec.float().cpu()
+def _logits(cfg, params, batch: dict, dev, cache_len: int = CACHE_LEN,
+            decode: torch.Tensor | None = None) -> list:
+    """Prefill of ``batch``, then one decode step per token of ``decode``
+    (teacher forced; default: the prompt's last token) from the same
+    weights: the logits of each, on the CPU."""
+    prompt = batch["tokens"]
+    if decode is None:
+        decode = prompt[:, -1:]
+    pre, caches = M.prefill(params, cfg, {k: v.to(dev)
+                                          for k, v in batch.items()},
+                            cache_len)
+    out = [pre.float().cpu()]
+    pos = M.prefix_len(cfg) + prompt.shape[1]
+    for i in range(decode.shape[1]):
+        dec, _ = M.decode_step(params, cfg, caches,
+                               decode[:, i:i + 1].to(dev), pos + i)
+        out.append(dec.float().cpu())
+    return out
 
 
-def _compare_logits(label: str, got: tuple, want: tuple) -> None:
-    for i, phase in enumerate(("prefill", "decode")):
-        g, w = got[i], want[i]
+def _compare_logits(tag: str, label: str, got: list, want: list) -> None:
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        phase = "prefill" if i == 0 else f"decode {i}"
         if not torch.isfinite(g).all():
             raise AssertionError(f"{label} {phase} logits not finite")
         err = (g - w).abs().max().item()
-        print(f"[serve] {label} {phase} logits [1, 1, {g.shape[-1]}]: "
+        print(f"{tag} {label} {phase} logits [1, 1, {g.shape[-1]}]: "
               f"max_abs_err={err:.3g} (tol {LOGIT_TOL:g}, logits "
               f"max |x|={w.abs().max().item():.3g})")
         if err > LOGIT_TOL:
@@ -999,11 +1089,14 @@ def _compare_logits(label: str, got: tuple, want: tuple) -> None:
 
 
 @torch.inference_mode()
-def _check_against_cpu(cfg, params, prompt) -> None:
+def _check_against_cpu(cfg, params, batch: dict, tag: str = "[serve]",
+                       cache_len: int = CACHE_LEN,
+                       decode: torch.Tensor | None = None) -> None:
     """The card (kernels) against the CPU (plain versions)."""
-    _compare_logits(f"{cfg.name} card vs CPU",
-                    _logits(cfg, params, prompt, "cuda"),
-                    _logits(cfg, _tree_to(params, "cpu"), prompt, "cpu"))
+    _compare_logits(tag, f"{cfg.name} card vs CPU",
+                    _logits(cfg, params, batch, "cuda", cache_len, decode),
+                    _logits(cfg, _tree_to(params, "cpu"), batch, "cpu",
+                            cache_len, decode))
 
 
 @torch.inference_mode()
@@ -1012,20 +1105,150 @@ def _check_xlstm_logits(cfg, params, prompt) -> None:
     card with the sLSTM plain version in its place; then one full-width
     superblock (7 mLSTM + 1 sLSTM) with the kernel against the CPU (a CPU
     copy of the whole 14 GB model is not needed for that)."""
-    got = _logits(cfg, params, prompt, "cuda")
+    batch = {"tokens": prompt}
+    got = _logits(cfg, params, batch, "cuda")
     X.slstm_scan = slstm_scan_ref
     try:
-        want = _logits(cfg, params, prompt, "cuda")
+        want = _logits(cfg, params, batch, "cuda")
     finally:
         X.slstm_scan = slstm_scan
-    _compare_logits(f"{cfg.name} sLSTM kernel vs plain on the card", got,
-                    want)
+    _compare_logits("[serve]", f"{cfg.name} sLSTM kernel vs plain on the "
+                    "card", got, want)
     pattern = cfg.stages[0].pattern
     one = replace(cfg, n_layers=len(pattern), stages=(StageDef(pattern, 1),))
     small = M.init_params(one, 0, device="cuda")
-    _compare_logits(f"{cfg.name} one superblock card vs CPU",
-                    _logits(one, small, prompt, "cuda"),
-                    _logits(one, _tree_to(small, "cpu"), prompt, "cpu"))
+    _compare_logits("[serve]", f"{cfg.name} one superblock card vs CPU",
+                    _logits(one, small, batch, "cuda"),
+                    _logits(one, _tree_to(small, "cpu"), batch, "cpu"))
+
+
+# --------------------------------------------------------------------------- #
+# Phase 4: run deepseek-7b, seamless-m4t-medium and llava-next-34b            #
+# --------------------------------------------------------------------------- #
+
+
+# arch, decoder layers kept (None: all), and the cut of the card-vs-CPU
+# comparison (decoder layers, modality positions; None: the whole model)
+MODELS = (("deepseek-7b", None, None),
+          ("seamless-m4t-medium", None, None),
+          ("llava-next-34b", 12, (1, 64)))
+MODEL_TOKENS = 8                      # decode tokens held against references
+
+
+@contextmanager
+def _plain_attention():
+    """The attention layers with both kernels' plain versions in their
+    place (on the card, no launch counted)."""
+    A.flash_attention, A.decode_attention = (flash_attention_ref,
+                                             decode_attention_ref)
+    try:
+        yield
+    finally:
+        A.flash_attention, A.decode_attention = (flash_attention,
+                                                 decode_attention)
+
+
+def _cut(cfg, layers: int | None, n_modality: int | None = None):
+    """``cfg`` with its decoder cut to ``layers`` (same layer kind) and, for
+    a decoder-only modality model, ``n_modality`` prefix positions."""
+    if layers is not None:
+        cfg = replace(cfg, n_layers=layers,
+                      stages=(StageDef(cfg.stages[0].pattern, layers),))
+    if n_modality is not None:
+        cfg = replace(cfg, n_modality_tokens=n_modality)
+    return cfg
+
+
+def _model_batch(cfg, gen) -> dict:
+    """A PROMPT_LEN-token prompt and the modality embeddings the model
+    takes: llava's n_modality_tokens patches, seamless's PROMPT_LEN frames
+    (as the cost model makes them)."""
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN),
+                                     generator=gen, device="cuda")}
+    if cfg.modality_embed_dim:
+        n = cfg.n_modality_tokens or PROMPT_LEN
+        batch["modality_emb"] = torch.randn((1, n, cfg.modality_embed_dim),
+                                            generator=gen, device="cuda")
+    return batch
+
+
+def phase_model(arch: str, layers: int | None, cpu_cut) -> None:
+    """A model the engine does not serve (it passes tokens only, as the
+    JAX engine does), at full width with random weights from seed 0: the
+    cost model, step device times and ``[profile]`` lines at the model's
+    real positions, then one prefill and MODEL_TOKENS decode tokens with
+    exact launch counts, their logits held against the plain versions on
+    the card and against the CPU (at ``cpu_cut`` where given)."""
+    cfg = _cut(get_config(arch), layers)
+    prefix = M.prefix_len(cfg)
+    cache_len = prefix + CACHE_LEN
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cost = measure_cost_model(cfg, prompt_len=PROMPT_LEN,
+                              cache_len=cache_len, reps=3, device="cuda")
+    print(f"[model] {arch} cost model in {time.perf_counter() - t0:.2f} s: "
+          f"prefill {cost.prefill[1]}, decode {cost.decode} (its decode "
+          f"runs at pos={PROMPT_LEN}, as the JAX cost model's)")
+    gc.collect()                        # the cost model's own weights
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0, device="cuda")
+    leaves = list(_leaves(params))
+    torch.cuda.synchronize()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    batch = _model_batch(cfg, gen)
+    decode = torch.randint(0, cfg.vocab_size, (1, MODEL_TOKENS),
+                           generator=gen, device="cuda")
+    cut = "" if layers is None else \
+        f", decoder cut to {layers} of {get_config(arch).n_layers} layers"
+    emb = batch.get("modality_emb")
+    print(f"[model] {arch}: {cfg.n_layers} decoder layers"
+          f"{cut}, {cfg.n_encoder_layers} encoder layers, d={cfg.d_model} "
+          f"H={cfg.n_heads} KV={cfg.n_kv_heads} D={cfg.resolved_head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.padded_vocab}, modality_emb "
+          f"{'-' if emb is None else list(emb.shape)}, "
+          f"{sum(t.numel() for t in leaves)} params, "
+          f"{_nbytes(*leaves) / 1e9:.2f} GB ({cfg.param_dtype}) initialised "
+          f"in {time.perf_counter() - t0:.2f} s; cache {cache_len} slots")
+    _step_device_times("[model]", cfg, params, cost, batch, cache_len,
+                       prefix + PROMPT_LEN, calls=1 if prefix else 3)
+    _counters_at_rest(f"{arch} step replays")
+
+    with torch.inference_mode():
+        _reset_launches()
+        got = _logits(cfg, params, batch, "cuda", cache_len, decode)
+        torch.cuda.synchronize()
+        launches = _launches()
+        want = _expected_launches(cfg, 1, MODEL_TOKENS)
+        print(f"[model] {arch} kernel launches in one prefill and "
+              f"{MODEL_TOKENS} decode tokens: "
+              + ", ".join(f"{k}={v}" for k, v in launches.items()))
+        if launches != want:
+            raise AssertionError(f"{arch}: kernel launches {launches}, "
+                                 f"expected {want}")
+        with _plain_attention():
+            plain = _logits(cfg, params, batch, "cuda", cache_len, decode)
+        _compare_logits("[model]", f"{arch} kernels vs plain on the card",
+                        got, plain)
+    print(f"[model] {arch} peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          "(max_memory_allocated over cost model, init, steps and logits)")
+    if cpu_cut is None:
+        _check_against_cpu(cfg, params, batch, "[model]", cache_len, decode)
+        return
+    del params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_layers, n_mod = cpu_cut
+    small_cfg = _cut(cfg, n_layers, n_mod)
+    small = M.init_params(small_cfg, 0, device="cuda")
+    small_batch = {"tokens": batch["tokens"],
+                   "modality_emb": batch["modality_emb"][:, :n_mod]}
+    print(f"[model] {arch} card vs CPU at a cut: {n_layers} decoder "
+          f"layer(s) of full width, {n_mod} patches + {PROMPT_LEN} tokens")
+    _check_against_cpu(small_cfg, small, small_batch, "[model]",
+                       n_mod + CACHE_LEN, decode)
 
 
 def main() -> int:
@@ -1038,16 +1261,30 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     card = card_line()
     print(f"[env] card: {card}")
+    t0 = time.perf_counter()
     phase_build()
     rows = phase_kernels()
+    print(f"[time] build and kernels: {time.perf_counter() - t0:.1f} s")
+    # the kernels line carries the launches of the main path's engine run
+    # of each kernel: qwen2's for the attention kernels, xLSTM's for the
+    # sLSTM scan (the first served model that launches it); the standalone
+    # halo conv block carries those of its own phase
     launches = {}
     for arch in ARCHS:
-        ran = phase_serve(arch)
-        launches.update({k: v for k, v in ran.items() if v})
+        t1 = time.perf_counter()
+        for name, n in phase_serve(arch).items():
+            if n:
+                launches.setdefault(name, n)
         gc.collect()                        # free this model before the next
         torch.cuda.empty_cache()
-    # a served model's kernels carry its engine run's launches; the
-    # standalone halo conv block carries those of its own phase
+        print(f"[time] serve {arch}: {time.perf_counter() - t1:.1f} s")
+    for arch, layers, cpu_cut in MODELS:
+        t1 = time.perf_counter()
+        phase_model(arch, layers, cpu_cut)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[time] model {arch}: {time.perf_counter() - t1:.1f} s")
+    print(f"[time] total: {time.perf_counter() - t0:.1f} s")
     kernels = [dict({"launches": launches.get(name, 0)}, **rows[name])
                for name in sorted(rows)]
     print(card)

@@ -1,7 +1,9 @@
 """Architecture registry of the port: ``arch id`` -> ModelConfig.
 
-Only the architectures whose layers the port runs are listed: the dense
-GQA decoders and xLSTM.  The rest wait for their mixers (see ROADMAP.md).
+Listed: every architecture whose layers are attention with a dense FFN
+(the dense GQA decoders, llava-next-34b's modality prefix and
+seamless-m4t-medium's encoder-decoder) and xLSTM.  The MoE, MLA and Mamba
+architectures wait for their mixers (ROADMAP.md, Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -13,6 +15,10 @@ _MODULES = {
     "smollm-135m": "smollm_135m",
     "qwen2-0.5b": "qwen2_0_5b",
     "xlstm-1.3b": "xlstm_1_3b",
+    "deepseek-7b": "deepseek_7b",
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "llava-next-34b": "llava_next_34b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -6,8 +6,8 @@ Builds a copy of ``csrc/flash_attention.cu`` in which thread 0 of CTA
 (0, 0, 0) -- the latest rows, so the CTA with the most K tiles under a
 causal mask -- reads the SM clock (``clock64``) and the global timer at the
 kernel's phase boundaries.  It runs the shapes of ``chip_smoke.py``'s flash
-cases that matter most (qwen2's heads at T=16 and T=1024, phi3-mini's at
-T=1024, both dtypes) and prints, per call, the cycles of the prologue (the
+cases that matter most (qwen2's heads at T=16 and T=1024, deepseek-7b's
+(H = KV = 32, D = 128) at T=1024, both dtypes) and prints, per call, the cycles of the prologue (the
 tile flags and the visit list, the first loads) and, as a mean over the
 steps of that CTA's walk (a K tile for each key group), those of each
 step's phases.  The timed kernel is
@@ -82,7 +82,7 @@ TILE_PHASES = ("wait + barrier", "issue next loads", "f32 split + barrier",
 CASES = (  # (label, T, H, KV, D)
     ("qwen2 T=16", 16, 14, 2, 64),
     ("qwen2 T=1024", 1024, 14, 2, 64),
-    ("phi3-mini T=1024", 1024, 32, 32, 128),
+    ("deepseek-7b T=1024", 1024, 32, 32, 128),
 )
 
 

@@ -3,7 +3,7 @@
     python3 -m repro_torch.kernels.flash_attention.sweep
 
 For prompts at qwen2-0.5b's heads (H=14, KV=2, D=64; T=16 to 2048) and
-phi3-mini's (H = KV = 32, D = 128; T=16 and 1024), causal, in f32 and
+deepseek-7b's (H = KV = 32, D = 128; T=16 and 1024), causal, in f32 and
 bf16, times the kernel by CUDA-graph replay at every rows-per-CTA and
 key-group count whose shared memory and threads fit, checks each against
 the wrapper's output, and marks the one ``plan_flash`` picks (``[sweep]``

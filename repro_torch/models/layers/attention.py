@@ -1,15 +1,17 @@
 """GQA/MHA attention with RoPE, optional QKV bias, sliding windows and a
 position-tracked (optionally rotating) KV cache.
 
-Port of the JAX package's ``models/layers/attention.py`` (self-attention;
-cross-attention waits for the encoder-decoder port).  Cache layout: k/v
-[B, S, KV, D] with an int32 ``positions [B, S]`` slot map (-1 = empty).
+Port of the JAX package's ``models/layers/attention.py``: self-attention,
+and the cross-attention of encoder-decoder layers (:func:`cross_kv`,
+:func:`cross_attend`).  Cache layout: k/v [B, S, KV, D] with an int32
+``positions [B, S]`` slot map (-1 = empty).
 Full causal caches write slot ``pos``; sliding-window caches write slot
 ``pos % cache_len``.  Masks come from the stored absolute positions, never
 from slot order.
 
-Full-sequence attention goes through the flash kernel and cache decode
-through the decode kernel; both wrappers take their plain versions for CPU
+Full-sequence attention and cross-attention (unmasked, a prompt's queries
+or a decode token's one) go through the flash kernel, cache decode through
+the decode kernel; both wrappers take their plain versions for CPU
 tensors.  Unlike the JAX layer, a decode step writes its new K/V slot into
 the cache tensors in place instead of returning updated copies: a cache is
 owned by one request, and the copy would cost a full cache write per token.
@@ -150,3 +152,29 @@ def attn_apply(
 def attn_out_project(params: dict, attn_out: torch.Tensor) -> torch.Tensor:
     b, t, h, d = attn_out.shape
     return torch.matmul(attn_out.reshape(b, t, h * d), params["wo"])
+
+
+# --------------------------------------------------------------------------- #
+# Cross-attention (encoder-decoder)                                           #
+# --------------------------------------------------------------------------- #
+
+
+def cross_kv(params: dict, enc_out: torch.Tensor) -> dict:
+    """K and V of the encoder output [B, S, d] (with bias, no RoPE) ->
+    {"k", "v"} [B, S, KV, hd]: what a cross layer's cache holds."""
+    return {"k": _project(enc_out, params["wk"], params.get("bk")),
+            "v": _project(enc_out, params["wv"], params.get("bv"))}
+
+
+def cross_attend(params: dict, x: torch.Tensor, ckv: dict,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """x [B, T, d] attends over every encoder position of ``ckv``: queries
+    not rotated, no mask (the flash kernel with ``causal=False``), then the
+    output projection -> [B, T, d]."""
+    q = _project(x, params["wq"], params.get("bq"))
+    t, s = x.shape[1], ckv["k"].shape[1]
+    q_pos = torch.arange(t, dtype=torch.int32, device=x.device)
+    k_pos = torch.arange(s, dtype=torch.int32, device=x.device)
+    out = flash_attention(q.contiguous(), ckv["k"].contiguous(),
+                          ckv["v"].contiguous(), q_pos, k_pos, causal=False)
+    return attn_out_project(params, out)

@@ -3,11 +3,11 @@ and sLSTM (scalar memory, sequential scan), both with exponential gating and
 the max-state stabiliser.
 
 Port of the JAX package's ``models/layers/xlstm.py``.  The mLSTM runs its
-parallel (T x T decay-masked) form over a sequence and its recurrent form
-against a cache; the chunkwise form (``cfg.mlstm_chunk``) is not ported
-yet.  Every sLSTM recurrence, a prompt's T steps or a decode token's one,
-goes through the ``slstm_scan`` op (the CUDA kernel on a card, its plain
-version on the CPU).  Unlike the JAX layers, a cache is updated in place.
+parallel (T x T decay-masked) form over a sequence, or its chunkwise form
+where ``cfg.mlstm_chunk`` is set and the sequence is longer, and its
+recurrent form against a cache.  Every sLSTM recurrence, a prompt's T
+steps or a decode token's one, goes through the ``slstm_scan`` op (the
+CUDA kernel on a card, its plain version on the CPU).  Unlike the JAX layers, a cache is updated in place.
 """
 from __future__ import annotations
 
@@ -19,10 +19,6 @@ import torch.nn.functional as F
 from ...kernels.slstm_scan import slstm_scan
 from ..config import ModelConfig
 from .common import dense_init, groupnorm_heads, normal_init, silu
-
-_ROADMAP_CHUNKED = ("ROADMAP.md, Queue 1 item 9 (the chunkwise mLSTM, "
-                    "_mlstm_chunked)")
-
 
 # =========================================================================== #
 # mLSTM                                                                       #
@@ -122,6 +118,59 @@ def _mlstm_parallel(q, k, v, i_pre, f_pre) -> torch.Tensor:
     return hout / (norm[..., None] + 1e-6)
 
 
+def _mlstm_chunked(q, k, v, i_pre, f_pre, chunk: int):
+    """The chunkwise form: chunk x chunk decay-masked blocks and a (C, n, m)
+    carry between chunks, with the stabiliser ``m_t = max_{s<=t} a_{t,s}``
+    tracked exactly through the chunks.  A ragged last chunk runs short
+    (the JAX form pads it, and its padded steps decay the carry), so the
+    returned state is the state after step T-1.
+
+    q/k/v [B,T,H,dh]; i_pre/f_pre [B,T,H] f32.  The carry starts at the
+    zero state.  Returns (h_out [B,T,H,dh] f32, m_t [B,T,H], final state
+    (C [B,H,dh,dh], n [B,H,dh], m [B,H]))."""
+    b, t, h, dh = q.shape
+    f32, dev = torch.float32, q.device
+    c_st = torch.zeros((b, h, dh, dh), dtype=f32, device=dev)
+    n_st = torch.zeros((b, h, dh), dtype=f32, device=dev)
+    m_prev = torch.full((b, h), -1e30, dtype=f32, device=dev)
+    scale = dh ** -0.5
+    hs, ms = [], []
+    for s0 in range(0, t, chunk):
+        part = slice(s0, min(s0 + chunk, t))
+        qc = q[:, part].float() * scale
+        kc, vc = k[:, part].float(), v[:, part].float()
+        cum = torch.cumsum(F.logsigmoid(f_pre[:, part]), dim=1)  # inclusive
+        u = i_pre[:, part] - cum                            # i_s - cum_s
+        w = torch.maximum(m_prev[:, None], torch.cummax(u, dim=1).values)
+        m_t = cum + w                                   # row-max stabiliser
+        # intra-chunk: D[t, s] = exp(u_s - w_t) for s <= t
+        n = qc.shape[1]
+        causal = torch.tril(torch.ones((n, n), dtype=torch.bool,
+                                       device=q.device))[None, :, :, None]
+        dmat = torch.exp(u[:, None, :, :] - w[:, :, None, :]).masked_fill(
+            ~causal, 0.0)
+        scores = torch.einsum("blhk,bshk->blsh", qc, kc) * dmat
+        num = torch.einsum("blsh,bshk->blhk", scores, vc)
+        den = scores.sum(dim=2)                             # [B,L,H]
+        # inter-chunk, from the carried state
+        qg = qc * torch.exp(m_prev[:, None] - w)[..., None]
+        num = num + torch.einsum("blhk,bhkj->blhj", qg, c_st)
+        den = den + torch.einsum("blhk,bhk->blh", qg, n_st)
+        hs.append(num / (torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
+                         + 1e-6))
+        ms.append(m_t)
+        # the state at the chunk's last step
+        w_last = w[:, -1]
+        coeff = torch.exp(u - w_last[:, None])              # [B,L,H]
+        decay = torch.exp(m_prev - w_last)
+        c_st = decay[..., None, None] * c_st + torch.einsum(
+            "bsh,bshk,bshj->bhkj", coeff, kc, vc)
+        n_st = decay[..., None] * n_st + torch.einsum("bsh,bshk->bhk", coeff,
+                                                      kc)
+        m_prev = cum[:, -1] + w_last
+    return torch.cat(hs, 1), torch.cat(ms, 1), (c_st, n_st, m_prev)
+
+
 def _mlstm_update(cache: dict, k: torch.Tensor, v: torch.Tensor,
                   i_pre: torch.Tensor, f_pre: torch.Tensor) -> torch.Tensor:
     """One recurrent step written into ``cache`` (c, n, m) in place:
@@ -144,21 +193,23 @@ def mlstm_apply(
     *,
     cache: Optional[dict] = None,
 ) -> tuple[torch.Tensor, Optional[dict]]:
-    """Full sequence (``cache`` None) or one token against the cache, which
-    is written in place and returned."""
+    """Full sequence (``cache`` None; the chunkwise form where
+    ``cfg.mlstm_chunk`` is set and T exceeds it, else the parallel one) or
+    one token against the cache, which is written in place and
+    returned."""
     di = params["skip"].shape[0]
     up = torch.matmul(x, params["up_proj"])
     xi_raw, z = up[..., :di], up[..., di:]
 
     if cache is None:
-        if cfg.mlstm_chunk and x.shape[1] > cfg.mlstm_chunk:
-            raise NotImplementedError(
-                f"mLSTM over T={x.shape[1]} > mlstm_chunk="
-                f"{cfg.mlstm_chunk} is not ported yet: {_ROADMAP_CHUNKED}")
         xi = silu(_conv_causal(params["conv_w"], params["conv_b"], xi_raw,
                                None))
         q, k, v, i_pre, f_pre = _qkv_gates(params, xi)
-        hout = _mlstm_parallel(q, k, v, i_pre, f_pre)
+        if cfg.mlstm_chunk and x.shape[1] > cfg.mlstm_chunk:
+            hout, _, _ = _mlstm_chunked(q, k, v, i_pre, f_pre,
+                                        cfg.mlstm_chunk)
+        else:
+            hout = _mlstm_parallel(q, k, v, i_pre, f_pre)
     else:
         conv_win = torch.cat([cache["conv"], xi_raw], dim=1)
         xi = silu(torch.einsum("bki,ki->bi", conv_win, params["conv_w"])

@@ -1,25 +1,30 @@
-"""The decoder: embeddings, decoder stages, tied or untied LM head, with
-init / forward / prefill / decode_step entry points.
+"""The model: embeddings, an optional modality projector and encoder,
+decoder stages, tied or untied LM head, with init / forward / prefill /
+decode_step entry points.
 
-Port of the JAX package's ``models/model.py`` for decoder-only text models
-whose layers :func:`blocks.check_layer` admits (attention with a dense FFN,
-xLSTM's mLSTM and sLSTM blocks).  Encoder-decoder and modality front ends
-raise ``NotImplementedError`` (ROADMAP.md, Queue 1 item 9).
+Port of the JAX package's ``models/model.py`` for models whose layers
+:func:`blocks.check_layer` admits (attention with a dense FFN, with or
+without cross-attention; xLSTM's mLSTM and sLSTM blocks).  Modality models
+take precomputed frame or patch embeddings (``batch["modality_emb"]``)
+through a learned two-layer projector: a decoder-only model (llava)
+prepends them to the token embeddings, an encoder-decoder (seamless)
+encodes them and its decoder layers cross-attend to the encoder output.
 
 Caches are written in place: ``prefill`` fills freshly allocated caches
-(K/V slots, or the recurrent states of the xLSTM layers) and
-``decode_step`` updates each layer's cache in the caches it is given and
-returns the same dict.
+(K/V slots, a cross layer's encoder K/V, or the recurrent states of the
+xLSTM layers) and ``decode_step`` updates each layer's cache in the caches
+it is given and returns the same dict.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
 from .blocks import LayerCtx, check_layer, layer_apply, stage_apply, \
     stage_cache_init, stage_init, take_layer
 from .config import ModelConfig
-from .layers.attention import project_kv
+from .layers.attention import cross_kv, project_kv
 from .layers.xlstm import fill_mlstm_cache
 from .layers.common import normal_init, dense_init, rmsnorm, rmsnorm_init
 
@@ -33,11 +38,7 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 def check_config(cfg: ModelConfig) -> None:
     """Raise for an architecture the port does not run yet."""
-    if cfg.is_encoder_decoder or cfg.modality_embed_dim:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and modality front ends are not "
-            "ported yet: ROADMAP.md, Queue 1 item 9")
-    for st in cfg.stages:
+    for st in cfg.encoder_stages + cfg.stages:
         for ld in st.pattern:
             check_layer(ld)
 
@@ -63,6 +64,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                   dtype=dt)
+    if cfg.modality_embed_dim:
+        p["proj_in"] = dense_init(gen, cfg.modality_embed_dim, cfg.d_model,
+                                  dtype=dt)
+        p["proj_mid"] = dense_init(gen, cfg.d_model, cfg.d_model, dtype=dt)
+    for i, st in enumerate(cfg.encoder_stages):
+        p[f"enc{i}"] = stage_init(gen, st, cfg, dt)
+    if cfg.encoder_stages:
+        p["enc_norm"] = rmsnorm_init(cfg.d_model, dt, dev)
     for i, st in enumerate(cfg.stages):
         p[f"dec{i}"] = stage_init(gen, st, cfg, dt)
     return p
@@ -78,6 +87,13 @@ def embed_tokens(params: Params, cfg: ModelConfig,
     return params["embed"][tokens]
 
 
+def project_modality(params: Params, emb: torch.Tensor) -> torch.Tensor:
+    """emb [B, S, modality_dim] -> [B, S, d]: two projections with the
+    tanh-approximated GELU between them (``jax.nn.gelu``'s default)."""
+    h = torch.matmul(emb.to(params["proj_in"].dtype), params["proj_in"])
+    return torch.matmul(F.gelu(h, approximate="tanh"), params["proj_mid"])
+
+
 def lm_logits(params: Params, cfg: ModelConfig,
               x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
@@ -90,16 +106,64 @@ def _positions(t: int, device: torch.device) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
+# Encoder                                                                     #
+# --------------------------------------------------------------------------- #
+
+
+def encode(params: Params, cfg: ModelConfig,
+           enc_input: torch.Tensor) -> torch.Tensor:
+    """enc_input [B, S, d] (projected frame embeddings) -> the normed
+    encoder output: unmasked self-attention with RoPE at 0..S-1."""
+    ctx = LayerCtx(cfg=cfg, positions=_positions(enc_input.shape[1],
+                                                 enc_input.device),
+                   causal=False)
+    x = enc_input
+    for i, st in enumerate(cfg.encoder_stages):
+        x, _ = stage_apply(params[f"enc{i}"], st, x, ctx)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _encoder_output(params: Params, cfg: ModelConfig, batch: dict):
+    if not cfg.is_encoder_decoder:
+        return None
+    return encode(params, cfg, project_modality(params,
+                                                batch["modality_emb"]))
+
+
+def prefix_len(cfg: ModelConfig) -> int:
+    """Decoder positions before the first text token: a decoder-only
+    modality model's ``n_modality_tokens`` projected patches, else 0.  A
+    decode position counts them."""
+    if cfg.modality_embed_dim and not cfg.is_encoder_decoder:
+        return cfg.n_modality_tokens
+    return 0
+
+
+def _decoder_input(params: Params, cfg: ModelConfig,
+                   batch: dict) -> torch.Tensor:
+    """[B, T, d] decoder input: the token embeddings, after the projected
+    modality embeddings where a decoder-only model takes them."""
+    x = embed_tokens(params, cfg, batch["tokens"])
+    if prefix_len(cfg):
+        vis = project_modality(params, batch["modality_emb"])
+        x = torch.cat([vis.to(x.dtype), x], dim=1)
+    return x
+
+
+# --------------------------------------------------------------------------- #
 # Decoder forward (full sequence)                                             #
 # --------------------------------------------------------------------------- #
 
 
 def forward(params: Params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """batch {"tokens": [B, T] int} -> logits [B, T, padded_vocab]."""
+    """batch {"tokens": [B, T_text] int, "modality_emb": [B, S_mod,
+    modality_dim] (modality models)} -> logits [B, T, padded_vocab], T
+    counting a decoder-only model's modality positions."""
     check_config(cfg)
-    x = embed_tokens(params, cfg, batch["tokens"])
+    enc_out = _encoder_output(params, cfg, batch)
+    x = _decoder_input(params, cfg, batch)
     ctx = LayerCtx(cfg=cfg, positions=_positions(x.shape[1], x.device),
-                   causal=True, window=cfg.sliding_window)
+                   causal=True, window=cfg.sliding_window, enc_out=enc_out)
     for i, st in enumerate(cfg.stages):
         x, _ = stage_apply(params[f"dec{i}"], st, x, ctx)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -111,12 +175,12 @@ def forward(params: Params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 
 
-def init_caches(cfg: ModelConfig, batch: int, cache_len: int, *,
-                device: str | torch.device) -> Caches:
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                enc_len: int = 0, *, device: str | torch.device) -> Caches:
     dev = torch.device(device)
     return {
         f"dec{i}": stage_cache_init(st, cfg, batch, cache_len, _dtype(cfg),
-                                    dev)
+                                    dev, enc_len)
         for i, st in enumerate(cfg.stages)
     }
 
@@ -128,14 +192,16 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, *,
 
 def prefill(params: Params, cfg: ModelConfig, batch: dict,
             cache_len: int) -> tuple[torch.Tensor, Caches]:
-    """Runs the full prompt, returns (last-position logits [B, 1, V],
-    filled caches)."""
+    """Runs the full prompt (``batch`` as :func:`forward` takes it),
+    returns (last-position logits [B, 1, V], filled caches)."""
     check_config(cfg)
-    x = embed_tokens(params, cfg, batch["tokens"])
+    enc_out = _encoder_output(params, cfg, batch)
+    x = _decoder_input(params, cfg, batch)
     b, t, _ = x.shape
     ctx = LayerCtx(cfg=cfg, positions=_positions(t, x.device), causal=True,
-                   window=cfg.sliding_window)
-    caches = init_caches(cfg, b, cache_len, device=x.device)
+                   window=cfg.sliding_window, enc_out=enc_out)
+    enc_len = enc_out.shape[1] if enc_out is not None else 0
+    caches = init_caches(cfg, b, cache_len, enc_len, device=x.device)
     for i, st in enumerate(cfg.stages):
         x = _prefill_stage(params[f"dec{i}"], st, x, ctx, caches[f"dec{i}"],
                            cache_len)
@@ -162,11 +228,18 @@ def _prefill_layer(p: dict, ld, x: torch.Tensor, ctx: LayerCtx, cache: dict,
     normed input, as the JAX prefill does.  The sLSTM runs its one scan
     from the fresh cache, which holds the zero state: the same call gives
     the hidden states and writes the final (h, c, n, m) into the cache,
-    where the JAX prefill runs the recurrence a second time."""
+    where the JAX prefill runs the recurrence a second time.  A cross layer
+    writes the encoder K/V into its cache first and the layer reads them
+    there, where the JAX prefill computes them twice."""
     if ld.mixer == "slstm":
         x_out, _ = layer_apply(p, ld, x, ctx, cache=cache)
         return x_out
-    x_out, _ = layer_apply(p, ld, x, ctx, cache=None)
+    cross = None
+    if ld.cross_attn:
+        for name, val in cross_kv(p["cross"], ctx.enc_out).items():
+            cache["cross"][name].copy_(val)
+        cross = {"cross": cache["cross"]}
+    x_out, _ = layer_apply(p, ld, x, ctx, cache=cross)
     h = rmsnorm(p["norm1"], x, ctx.cfg.norm_eps)
     if ld.mixer == "mlstm":
         fill_mlstm_cache(p["mixer"], h, cache["self"])
@@ -211,8 +284,10 @@ def decode_step(params: Params, cfg: ModelConfig, caches: Caches,
                 token: torch.Tensor, pos: int) -> tuple[torch.Tensor, Caches]:
     """One-token decode against the caches (written in place).
 
-    token [B, 1] int, pos the current absolute position as a host int.
-    Returns (logits [B, 1, V], caches).
+    token [B, 1] int, pos the current absolute position as a host int (a
+    decoder-only modality model's prefix counts).  A cross layer reads the
+    encoder K/V that prefill left in its cache.  Returns (logits [B, 1, V],
+    caches).
     """
     pos = int(pos)
     x = embed_tokens(params, cfg, token)

@@ -90,7 +90,12 @@ def measure_cost_model(
     latency, not its enqueue.  Model-parallel degree on one device is
     emulated by its compute split: the measured time anchors degree 2 and
     every doubling multiplies it by the paper's 2-core:4-core ratio of
-    16.862:2*11.611."""
+    16.862:2*11.611.
+
+    A modality model's prompt also takes ``n_modality_tokens`` (or
+    ``prompt_len``) random embeddings.  The decode step runs at position
+    ``prompt_len``, as the JAX cost model's does, whatever prefix a
+    decoder-only modality model put before the text."""
     degrees = tuple(degrees)
     if not degrees:
         raise ValueError("degrees must be a non-empty sequence")
@@ -109,6 +114,11 @@ def measure_cost_model(
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=gen, device=dev)
     batch_d = {"tokens": tokens}
+    if cfg.modality_embed_dim:
+        n_mod = cfg.n_modality_tokens or prompt_len
+        batch_d["modality_emb"] = torch.randn(
+            (batch, n_mod, cfg.modality_embed_dim), generator=gen,
+            device=dev)
 
     pre = make_prefill_step(cfg, cache_len, device=dev)
     srv = make_serve_step(cfg, device=dev)

@@ -18,12 +18,14 @@ from ..models.config import ModelConfig
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int, *,
                       device: str | torch.device = "cuda") -> Callable:
+    """The prompt's prefill: ``batch`` as ``model.forward`` takes it (tokens,
+    and a modality model's ``modality_emb``), moved to the device."""
     dev = resolve_device(device)
 
     @torch.inference_mode()
     def prefill_step(params, batch):
-        tokens = batch["tokens"].to(dev)
-        logits, caches = M.prefill(params, cfg, {"tokens": tokens}, cache_len)
+        batch = {name: val.to(dev) for name, val in batch.items()}
+        logits, caches = M.prefill(params, cfg, batch, cache_len)
         next_token = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1)
         return next_token.to(torch.int32), caches
 

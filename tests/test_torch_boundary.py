@@ -28,7 +28,9 @@ COPIES = [f"core/{n}.py" for n in (
     "__init__", "task", "calendar", "metrics", "network", "profiles",
     "policy", "scheduler", "victims", "workstealer", "oracle")] + [
     "sim/events.py", "models/config.py", "configs/qwen2_0_5b.py",
-    "configs/smollm_135m.py", "configs/xlstm_1_3b.py"]
+    "configs/smollm_135m.py", "configs/xlstm_1_3b.py",
+    "configs/deepseek_7b.py", "configs/phi3_mini_3_8b.py",
+    "configs/llava_next_34b.py", "configs/seamless_m4t_medium.py"]
 PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 

@@ -1,8 +1,9 @@
 """The port's model against the JAX model on the same weights.
 
 Weights come from the JAX ``init_params`` tree through
-``params_from_numpy``; tokens are made with numpy.  Tolerance 2e-4 on
-logits: the reference's own ``TOL`` (tests/test_decode_equivalence.py).
+``params_from_numpy``; tokens (and a modality model's frame or patch
+embeddings) are made with numpy.  Tolerance 2e-4 on logits: the
+reference's own ``TOL`` (tests/test_decode_equivalence.py).
 """
 from dataclasses import replace
 
@@ -23,6 +24,7 @@ from repro_torch.training.steps import make_prefill_step, make_serve_step
 
 T = 12
 TOL = 2e-4
+N_FRAMES = 6            # encoder frames of an encoder-decoder smoke model
 
 
 def _pair(arch, window=0):
@@ -44,21 +46,44 @@ def _err(t, j):
     return float(np.abs(t.detach().numpy() - np.asarray(j)).max())
 
 
+def _modality(cfg, b, seed=2):
+    """A modality model's embeddings [b, S, modality_dim] from a seed: its
+    n_modality_tokens patches, or N_FRAMES encoder frames; {} otherwise."""
+    if not cfg.modality_embed_dim:
+        return {}
+    n = cfg.n_modality_tokens or N_FRAMES
+    emb = 0.5 * np.random.default_rng(seed).standard_normal(
+        (b, n, cfg.modality_embed_dim))
+    return {"modality_emb": emb.astype(np.float32)}
+
+
+def _jbatch(toks, mod):
+    return {"tokens": jnp.asarray(toks),
+            **{k: jnp.asarray(v) for k, v in mod.items()}}
+
+
+def _tbatch(toks, mod):
+    return {"tokens": torch.from_numpy(np.asarray(toks)).long(),
+            **{k: torch.from_numpy(v) for k, v in mod.items()}}
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_forward_prefill_decode_match_jax(arch):
     jcfg, tcfg, jp, tp = _pair(arch)
     toks = _tokens(jcfg, (2, T + 1))
-    jfull, _ = JM.forward(jp, jcfg, {"tokens": jnp.asarray(toks)})
-    jpre, jcaches = JM.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :T])},
+    mod, off = _modality(jcfg, 2), M.prefix_len(jcfg)
+    jfull, _ = JM.forward(jp, jcfg, _jbatch(toks, mod))
+    jpre, jcaches = JM.prefill(jp, jcfg, _jbatch(toks[:, :T], mod),
                                cache_len=64)
     jdec, _ = JM.decode_step(jp, jcfg, jcaches, jnp.asarray(toks[:, T:]),
-                             jnp.int32(T))
+                             jnp.int32(off + T))
     tt = torch.from_numpy(toks).long()
     with torch.inference_mode():
-        tfull = M.forward(tp, tcfg, {"tokens": tt})
-        tpre, tcaches = M.prefill(tp, tcfg, {"tokens": tt[:, :T]}, 64)
-        tdec, _ = M.decode_step(tp, tcfg, tcaches, tt[:, T:], T)
-    assert tfull.shape == jfull.shape == (2, T + 1, tcfg.padded_vocab)
+        tfull = M.forward(tp, tcfg, _tbatch(toks, mod))
+        tpre, tcaches = M.prefill(tp, tcfg, _tbatch(toks[:, :T], mod), 64)
+        tdec, _ = M.decode_step(tp, tcfg, tcaches, tt[:, T:], off + T)
+    assert tfull.shape == jfull.shape == \
+        (2, off + T + 1, tcfg.padded_vocab)
     assert _err(tfull, jfull) < TOL
     assert _err(tpre, jpre) < TOL
     assert _err(tdec, jdec) < TOL
@@ -97,13 +122,16 @@ def test_prefill_caches_match_jax(arch, cache_len, window, t):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_prefill_then_decode_matches_forward(arch):
     _, cfg, _, params = _pair(arch)
-    tokens = torch.from_numpy(_tokens(cfg, (2, T + 1))).long()
+    toks = _tokens(cfg, (2, T + 1))
+    mod, off = _modality(cfg, 2), M.prefix_len(cfg)
+    tokens = torch.from_numpy(toks).long()
     with torch.inference_mode():
-        full = M.forward(params, cfg, {"tokens": tokens})
-        pre, caches = M.prefill(params, cfg, {"tokens": tokens[:, :T]}, 64)
-        assert float((pre[:, 0] - full[:, T - 1]).abs().max()) < TOL
-        dec, _ = M.decode_step(params, cfg, caches, tokens[:, T:T + 1], T)
-        assert float((dec[:, 0] - full[:, T]).abs().max()) < TOL
+        full = M.forward(params, cfg, _tbatch(toks, mod))
+        pre, caches = M.prefill(params, cfg, _tbatch(toks[:, :T], mod), 64)
+        assert float((pre[:, 0] - full[:, off + T - 1]).abs().max()) < TOL
+        dec, _ = M.decode_step(params, cfg, caches, tokens[:, T:T + 1],
+                               off + T)
+        assert float((dec[:, 0] - full[:, off + T]).abs().max()) < TOL
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -112,19 +140,20 @@ def test_multi_step_decode_chain(arch):
     decode chain."""
     jcfg, cfg, jp, params = _pair(arch)
     toks = _tokens(cfg, (2, T + 3))
+    mod, off = _modality(cfg, 2), M.prefix_len(cfg)
     tokens = torch.from_numpy(toks).long()
-    _, jc = JM.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :T])},
-                       cache_len=32)
+    _, jc = JM.prefill(jp, jcfg, _jbatch(toks[:, :T], mod), cache_len=32)
     with torch.inference_mode():
-        full = M.forward(params, cfg, {"tokens": tokens})
-        _, caches = M.prefill(params, cfg, {"tokens": tokens[:, :T]}, 32)
+        full = M.forward(params, cfg, _tbatch(toks, mod))
+        _, caches = M.prefill(params, cfg, _tbatch(toks[:, :T], mod), 32)
         for i in range(3):
+            p = off + T + i
             dec, caches = M.decode_step(params, cfg, caches,
-                                        tokens[:, T + i:T + i + 1], T + i)
+                                        tokens[:, T + i:T + i + 1], p)
             jdec, jc = JM.decode_step(jp, jcfg, jc,
                                       jnp.asarray(toks[:, T + i:T + i + 1]),
-                                      jnp.int32(T + i))
-            assert float((dec[:, 0] - full[:, T + i]).abs().max()) < TOL
+                                      jnp.int32(p))
+            assert float((dec[:, 0] - full[:, p]).abs().max()) < TOL
             assert _err(dec, jdec) < TOL
 
 
@@ -168,10 +197,14 @@ def test_steps_greedy_decode_over_real_vocab():
     assert int(nxt[0]) == int(jnp.argmax(jlogits[0, -1, :jcfg.vocab_size]))
 
 
-def test_init_params_tree_matches_jax():
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "seamless-m4t-medium",
+                                  "llava-next-34b"])
+def test_init_params_tree_matches_jax(arch):
     """Same keys, shapes and dtypes, leaf for leaf (stacked layers axis
-    kept), and the JAX distributions' scales."""
-    jcfg, cfg = jax_smoke_config("qwen2-0.5b"), get_smoke_config("qwen2-0.5b")
+    kept; the modality projector, encoder stages, ``enc_norm``, untied
+    ``lm_head`` and the cross layers' ``cross``/``norm_x`` included), and
+    the JAX distributions' scales."""
+    jcfg, cfg = jax_smoke_config(arch), get_smoke_config(arch)
     shapes = jax.eval_shape(lambda k: JM.init_params(jcfg, k),
                             jax.ShapeDtypeStruct((2,), jnp.uint32))
     tp = M.init_params(cfg, 0, device="cpu")
@@ -267,6 +300,44 @@ def test_full_width_config_is_xlstm_1_3b():
         3_503_728_976 != cfg.param_count()
 
 
+@pytest.mark.parametrize("arch,dims", [
+    ("deepseek-7b", (30, 4096, 32, 32, 128, 11008, 102400)),
+    ("phi3-mini-3.8b", (32, 3072, 32, 32, 96, 8192, 32256)),
+    ("llava-next-34b", (60, 7168, 56, 8, 128, 20480, 64000)),
+    ("seamless-m4t-medium", (12, 1024, 16, 16, 64, 4096, 256512)),
+])
+def test_full_width_config(arch, dims):
+    """Layers, width, heads, KV heads, head dim, d_ff and padded vocab of
+    the registered full-width config; none ties its embeddings, all are
+    f32 with no QKV bias."""
+    cfg = get_config(arch)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim, cfg.d_ff, cfg.padded_vocab) == dims
+    assert not cfg.tie_embeddings and not cfg.qkv_bias and \
+        cfg.param_dtype == "float32"
+    assert repr(cfg) == repr(jax_config(arch))      # field for field
+
+
+def test_full_width_modality_configs():
+    """llava prepends 2880 patch embeddings of 1024; seamless encodes
+    frames of 1024 with 12 encoder layers under 12 cross-attending decoder
+    layers; deepseek-7b and phi3-mini are plain decoders."""
+    llava = get_config("llava-next-34b")
+    assert (llava.modality_embed_dim, llava.n_modality_tokens) == \
+        (1024, 2880) and not llava.is_encoder_decoder
+    sm = get_config("seamless-m4t-medium")
+    assert sm.is_encoder_decoder and sm.n_encoder_layers == 12 and \
+        sm.modality_embed_dim == 1024 and sm.n_modality_tokens == 0
+    assert [ld.cross_attn for st in sm.stages for ld in st.pattern] == \
+        [True] and not any(ld.cross_attn for st in sm.encoder_stages
+                           for ld in st.pattern)
+    for arch in ("deepseek-7b", "phi3-mini-3.8b"):
+        cfg = get_config(arch)
+        assert not cfg.modality_embed_dim and not cfg.is_encoder_decoder
+        assert [ld.mixer for st in cfg.stages for ld in st.pattern] == \
+            ["attn"]
+
+
 def test_unported_layers_raise_with_roadmap_pointer():
     cfg = replace(get_smoke_config("qwen2-0.5b"), n_layers=1,
                   stages=(StageDef((LayerDef("mamba", "dense"),), 1),))
@@ -276,3 +347,26 @@ def test_unported_layers_raise_with_roadmap_pointer():
                   stages=(StageDef((LayerDef("attn", "moe"),), 1),))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         M.init_params(cfg, 0, device="cpu")
+
+
+def test_mla_mixer_raises_with_roadmap_pointer():
+    cfg = replace(get_smoke_config("qwen2-0.5b"), n_layers=1,
+                  stages=(StageDef((LayerDef("mla", "dense"),), 1),))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        M.init_params(cfg, 0, device="cpu")
+
+
+def test_stacked_init_equals_stack_of_layers():
+    """A stage's params are made layer by layer into the stacked tensors:
+    the same values as stacking the layers drawn in the same order."""
+    from repro_torch.models import blocks
+    cfg = get_smoke_config("seamless-m4t-medium")
+    ld = cfg.stages[0].pattern[0]
+    gens = [torch.Generator().manual_seed(5) for _ in range(2)]
+    got = blocks._stacked(3, lambda: blocks.layer_init(gens[0], ld, cfg,
+                                                       torch.float32))
+    layers = [blocks.layer_init(gens[1], ld, cfg, torch.float32)
+              for _ in range(3)]
+    want = jax.tree.map(lambda *ls: torch.stack(ls), *layers)
+    leaves = jax.tree.leaves(jax.tree.map(torch.equal, got, want))
+    assert len(leaves) == 14 and all(leaves)       # cross and norm_x too

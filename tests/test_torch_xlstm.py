@@ -137,13 +137,73 @@ def test_mlstm_parallel_equals_recurrent():
                                rtol=2e-4)
 
 
-def test_mlstm_chunked_form_raises_with_roadmap_pointer():
-    _, cfg, _, p = _mixer("mlstm")
-    cfg = replace(cfg, mlstm_chunk=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TX.mlstm_apply(p, torch.zeros((1, 5, cfg.d_model)), cfg)
-    y, _ = TX.mlstm_apply(p, torch.zeros((1, 4, cfg.d_model)), cfg)
-    assert y.shape == (1, 4, cfg.d_model)
+def _chunk_inputs(cfg, t, seed=11):
+    """q/k/v [2, t, H, dh] and f32 gate pre-activations [2, t, H] from a
+    seed, in both frameworks."""
+    rng = np.random.default_rng(seed)
+    di = int(cfg.xlstm.proj_factor_mlstm * cfg.d_model)
+    h = cfg.n_heads
+    qkv = [(rng.standard_normal((2, t, h, di // h))).astype(np.float32)
+           for _ in range(3)]
+    i_pre = rng.uniform(-3, 3, (2, t, h)).astype(np.float32)
+    f_pre = rng.uniform(-1, 5, (2, t, h)).astype(np.float32)
+    arrays = (*qkv, i_pre, f_pre)
+    return (tuple(jnp.asarray(a) for a in arrays),
+            tuple(_t(a) for a in arrays))
+
+
+@pytest.mark.parametrize("t,chunk", [
+    (12, 4),               # T % chunk == 0
+    (9, 3),                # three full chunks
+    (11, 4),               # ragged: the JAX form pads the last chunk
+    (5, 8),                # one short chunk
+])
+def test_mlstm_chunked_matches_jax(t, chunk):
+    """h_out and m_t against the JAX ``_mlstm_chunked`` on the same inputs;
+    the final (C, n, m) too where no padded step decays the JAX carry."""
+    _, cfg = _cfgs()
+    jin, tin = _chunk_inputs(cfg, t)
+    jh, jm, jfinal = JX._mlstm_chunked(*jin, chunk)
+    th, tm, tfinal = TX._mlstm_chunked(*tin, chunk)
+    assert th.dtype == torch.float32
+    _close(th, jh)
+    _close(tm, jm)
+    if t % chunk == 0:
+        for got, want in zip(tfinal, jfinal):
+            _close(got, want)
+
+
+@pytest.mark.parametrize("t", [11, 12])
+def test_mlstm_chunked_final_state_matches_recurrence(t):
+    """The chunked form's final state (ragged T included) equals the JAX
+    prefill's per-token recurrence (``model._fill_mlstm``) on the same
+    normed input."""
+    jcfg, cfg, jp, tp = _mixer("mlstm")
+    h = _x((2, t, cfg.d_model), 13)
+    want = JM._fill_mlstm(jp, jnp.asarray(h), jcfg,
+                          JX.init_mlstm_cache(2, jcfg, jnp.float32))
+    di = tp["skip"].shape[0]
+    xi_raw = torch.matmul(_t(h), tp["up_proj"])[..., :di]
+    xi = TC.silu(TX._conv_causal(tp["conv_w"], tp["conv_b"], xi_raw, None))
+    _, _, (c, n, m) = TX._mlstm_chunked(*TX._qkv_gates(tp, xi), 4)
+    for name, got in zip("cnm", (c, n, m)):
+        _close(got, want[name])
+
+
+@pytest.mark.parametrize("t", [11, 12])
+def test_mlstm_apply_chunked_form_matches_jax(t):
+    """With ``mlstm_chunk`` set and T > chunk the layer runs the chunked
+    form: its output matches the JAX layer's (which runs its own chunked
+    form) and the parallel form's."""
+    jcfg, cfg, jp, tp = _mixer("mlstm")
+    jcfg, ccfg = replace(jcfg, mlstm_chunk=4), replace(cfg, mlstm_chunk=4)
+    x = _x((2, t, cfg.d_model), 14)
+    want, _ = JX.mlstm_apply(jp, jnp.asarray(x), jcfg)
+    got, cache = TX.mlstm_apply(tp, _t(x), ccfg)
+    assert cache is None
+    _close(got, want)
+    parallel, _ = TX.mlstm_apply(tp, _t(x), cfg)
+    torch.testing.assert_close(got, parallel, atol=2e-5, rtol=2e-4)
 
 
 # --------------------------------------------------------------------------- #
