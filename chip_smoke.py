@@ -27,8 +27,9 @@ first fault (the script exits 0 only if every phase passed):
              prompt (H=56, KV=8, D=128), seamless's unmasked at T=16 and
              T=1 over 16 frames (its cross-attention), at positions that
              do not start at 0, with keys in a random order of positions,
-             and at D=48, and prints its plan and how many K tiles it
-             visits.  The sLSTM scan prints
+             at D=48, and at MLA's expanded prefill (H = KV = 128, D=192,
+             V zero-padded) at T=16 and T=1024, and prints its plan and how
+             many K tiles it visits.  The sLSTM scan prints
              its plan and how many of its clusters fit on the card, is
              timed with L2 flushed too, runs 200 decode steps in place
              against the plain version, and must give bit-identical
@@ -38,31 +39,38 @@ first fault (the script exits 0 only if every phase passed):
              (its standalone phase); its bound counts the bf16
              tensor-core passes its split operands take.
   3. serve   for each served model with random weights from seed 0 (full
-             width and depth; qwen2-0.5b, phi3-mini-3.8b, then
-             xlstm-1.3b): ``measure_cost_model``, then
-             ``PreemptiveServingEngine`` with 4 slices x 4 units serving
-             24 requests in a 2:1 HP:LP mix.  Checks every HP request
-             done, every done LP request holding its tokens, and each
-             kernel of the model launched exactly once per layer per
-             prefill or decode token; then holds the card's prefill and
-             decode logits against the plain path (the attention models:
-             the CPU; xLSTM: the full model with the sLSTM plain version
-             swapped in on the card, and one full-width superblock on the
-             CPU).  Before the engine run it times one prefill and one
-             decode step by CUDA-graph replay and records one of each
-             under ``torch.profiler``, printing the kernels that take the
-             most device time.
+             width; qwen2-0.5b, phi3-mini-3.8b and xlstm-1.3b whole, then
+             deepseek-v2-236b cut to its dense layer and two MoE layers):
+             ``measure_cost_model`` (its weights freed before the served
+             ones are made), then ``PreemptiveServingEngine`` with 4 slices
+             x 4 units serving 24 requests in a 2:1 HP:LP mix.  Checks
+             every HP request done, every done LP request holding its
+             tokens, each kernel of the model launched exactly once per
+             layer per prefill or decode token, and peak device memory
+             under 80 GB; then holds the card's prefill and decode logits
+             against the plain path (the attention and MLA models: the CPU,
+             deepseek-v2 at one dense + one MoE layer, with the smallest
+             gap between a token's k-th and (k+1)-th router score; xLSTM:
+             the full model with the sLSTM plain version swapped in on the
+             card, and one full-width superblock on the CPU).  Before the
+             engine run it times one prefill and one decode step by
+             CUDA-graph replay and records one of each under
+             ``torch.profiler``, printing the kernels that take the most
+             device time.
   4. model   the models the engine does not serve (it passes tokens only):
              deepseek-7b, seamless-m4t-medium (12 encoder + 12
-             cross-attending decoder layers over 16 frames) and
-             llava-next-34b (2880 patches before the prompt; 12 of its 60
-             layers, all 60 do not fit one card in f32), each at full
-             width: the cost model, the step device times at the model's
-             real positions with their ``[profile]`` lines, and one
-             prefill with 8 decode tokens, whose kernel launches must be
-             exact and whose logits are held against both kernels' plain
-             versions on the card and against the CPU (llava: at one layer
-             and 64 patches).
+             cross-attending decoder layers over 16 frames), llava-next-34b
+             (2880 patches before the prompt; 12 of its 60 layers, all 60 do
+             not fit one card in f32), deepseek-v3-671b (its dense layer and
+             one MoE layer: sigmoid router, q-LoRA) and jamba-1.5-large-398b
+             (layers 2-3 of its superblock: Mamba + dense FFN, attention +
+             MoE), each at full width: the cost model, the step device
+             times at the model's real positions with their ``[profile]``
+             lines, and one prefill with 8 decode tokens, whose kernel
+             launches must be exact and whose logits are held against both
+             kernels' plain versions on the card and against the CPU
+             (llava: at one layer and 64 patches; deepseek-v3: its dense
+             layer; jamba: its Mamba layer).
 
 The last lines are the card's name and power limit, one JSON object
 describing each kernel, and ``{"ok": true, "device": {...}}``.  Without a
@@ -72,6 +80,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -103,6 +112,8 @@ from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_ref
 from repro_torch.models import model as M
 from repro_torch.models.config import StageDef
 from repro_torch.models.layers import attention as A
+from repro_torch.models.layers import ffn as FF
+from repro_torch.models.layers import mla as L
 from repro_torch.models.layers import xlstm as X
 from repro_torch.serving.cost_model import measure_cost_model
 from repro_torch.serving.engine import (PreemptiveServingEngine,
@@ -132,8 +143,25 @@ HALO_ROUND = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8}
 # in another order in cuBLAS than in the CPU's BLAS.
 LOGIT_TOL = 2e-4
 
-ARCHS = ("qwen2-0.5b", "phi3-mini-3.8b", "xlstm-1.3b")   # served
-XLSTM_PARAMS = 3_503_728_976          # leaves of the JAX xlstm-1.3b tree
+# A cut keeps full-width layers of a model: ((stage, pattern slots,
+# repeats), ...) of its stages, in order (:func:`_cut`).  The card-vs-CPU
+# check of a cut model runs at a smaller cut of the cut, whose weights are
+# views of the card's (:func:`_sub`).
+V2_CUT = ((0, (0,), 1), (1, (0,), 2))     # deepseek-v2: 1 dense + 2 MoE
+V3_CUT = ((0, (0,), 1), (1, (0,), 1))     # deepseek-v3: 1 dense + 1 MoE
+JAMBA_CUT = ((0, (2, 3), 1),)             # jamba: mamba+dense, attn+moe
+FIRST_LAYER = ((0, (0,), 1),)
+# served: arch, cut (None: whole), cut of the card-vs-CPU check
+SERVED = (("qwen2-0.5b", None, None),
+          ("phi3-mini-3.8b", None, None),
+          ("xlstm-1.3b", None, None),
+          ("deepseek-v2-236b", V2_CUT, ((0, (0,), 1), (1, (0,), 1))))
+# leaves of the JAX trees at these cuts (eval_shape of its init_params)
+JAX_PARAMS = {"xlstm-1.3b": 3_503_728_976,
+              "deepseek-v2-236b": 9_330_795_520,
+              "deepseek-v3-671b": 13_947_804_672,
+              "jamba-1.5-large-398b": 11_912_896_512}
+CARD_BYTES = 80e9                     # an H100's 80 GB
 B, H, KV, D = 1, 14, 2, 64            # qwen2-0.5b attention at batch 1
 SH, SDH = 4, 512                      # xlstm-1.3b sLSTM heads, head dim
 CACHE_LEN = 256                       # the engine's default
@@ -227,15 +255,31 @@ def bound_ms(n_bytes: int, flops: float, peak: float) -> tuple[float, str]:
 TENSOR_CORE_KERNELS = ("halo_conv2d", "flash_attention")
 
 
+def _instance(line: str) -> str:
+    """A kernel template instance from ptxas's mangled entry name, as
+    ``<dtype, template ints>`` (flash: dtype, width class 0/1/2 for D up to
+    64/128/256, key groups)."""
+    found = re.search(r"_kernelI(.*?)EEv", line)
+    if not found:
+        return ""
+    args = found.group(1).replace("13__nv_bfloat16", "bf16,")
+    args = re.sub(r"^f", "f32,", args)
+    args = re.sub(r"Li(\d+)E", r"\1,", args)
+    return f" <{args.rstrip(',')}>"
+
+
 def phase_build() -> None:
     names = _build.all_kernels()
     t0 = time.perf_counter()
     logs = _build.build(names)
     dt = time.perf_counter() - t0
     for name, log in logs.items():
+        instance = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                instance = _instance(line)
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {name}{instance}: {line.strip()}")
     print(f"[build] {len(names)} kernels {names} ready in {dt:.2f} s "
           f"(built now: {sorted(logs)})")
     # the halo conv and flash kernels' products must be tensor-core
@@ -284,17 +328,20 @@ def _decode_case(s: int, n_filled: int, pos: int, window: int, dtype, gen,
 
 def _flash_case(t: int, dtype, gen, h: int = H, kv: int = KV, d: int = D,
                 offset: int = 0, permuted: bool = False,
-                s: int | None = None) -> tuple:
+                s: int | None = None, v_dim: int | None = None) -> tuple:
     """A prompt of t tokens at positions offset..offset+t-1; with
     ``permuted`` the keys hold those positions in a random order.  With
     ``s``, t queries over s other keys at positions 0..s-1, as
-    cross-attention gives them (unmasked)."""
+    cross-attention gives them (unmasked).  With ``v_dim``, V's columns
+    from v_dim on are zero (MLA's V padded to the query/key width)."""
     q = torch.randn((B, t, h, d), generator=gen, device="cuda").to(dtype)
     n_keys = t if s is None else s
     k = torch.randn((B, n_keys, kv, d), generator=gen,
                     device="cuda").to(dtype)
     v = torch.randn((B, n_keys, kv, d), generator=gen,
                     device="cuda").to(dtype)
+    if v_dim is not None:
+        v[..., v_dim:] = 0
     qp = offset + torch.arange(t, dtype=torch.int32, device="cuda")
     kp = qp if s is None else torch.arange(s, dtype=torch.int32,
                                            device="cuda")
@@ -366,10 +413,12 @@ def _decode_cases(gen) -> dict:
     valid slots alternating with empty ones, D=128, head dims that take
     the kernel's scalar loads (D=60 in bf16, D=63), and the heads of the
     other served and run models (phi3-mini H=KV=32 D=96, deepseek-7b
-    H=KV=32 D=128, llava-next-34b H=56 KV=8 D=128, seamless H=KV=16 D=64).
+    H=KV=32 D=128, llava-next-34b H=56 KV=8 D=128, seamless H=KV=16 D=64,
+    jamba H=64 KV=8 D=128; MLA's absorbed decode runs no kernel).
     Each case is checked again after its CUDA-graph timing replays."""
     phi3, deepseek = dict(h=32, kv=32, d=96), dict(h=32, kv=32, d=128)
     llava, seamless = dict(h=56, kv=8, d=128), dict(h=16, kv=16, d=64)
+    jamba = dict(h=64, kv=8, d=128)
     cases = [("S=256 filled=40 (main path)", 256, 40, 39, 0, {}, False),
              ("S=200 filled=200", 200, 200, 199, 0, {}, False),
              ("S=64 window=64 rotated pos=300", 64, 0, 300, 64, {}, False),
@@ -388,7 +437,8 @@ def _decode_cases(gen) -> dict:
              ("llava heads S=3136 filled=2897 (its decode at 2896)", 3136,
               2897, 2896, 0, llava, False),
              ("seamless heads S=256 filled=40", 256, 40, 39, 0, seamless,
-              False)]
+              False),
+             ("jamba heads S=256 filled=40", 256, 40, 39, 0, jamba, False)]
     plan = decode_ops.plan_split(B, CACHE_LEN, H, KV, D)
     smem = _build.load("decode_attention").decode_attention_smem_bytes(
         H, KV, D, plan.chunk, 0)
@@ -464,12 +514,16 @@ def _flash_cases(gen) -> dict:
     (H = KV = 16, D = 64) unmasked at T=16 (its encoder, and its
     cross-attention in prefill) and T=1 (cross-attention of a decode token)
     over 16 frames, positions that do not start at 0, keys in a random
-    order of positions (the tile skip on unsorted positions), and the smoke
-    configs' D=48 (zero-padded to 64).  Each case is checked, then timed
-    warm and with L2 flushed."""
+    order of positions (the tile skip on unsorted positions), the smoke
+    configs' D=48 (zero-padded to 64), and the expanded MLA prefill of the
+    DeepSeek models (H = KV = 128, D = nope 128 + rope 64 = 192 in the 256
+    width class, V zero-padded from 128) at T=16 and T=1024.  Jamba's
+    attention prefill (H=64, KV=8, D=128) takes llava's path.  Each case is
+    checked, then timed warm and with L2 flushed."""
     qwen2 = dict(h=H, kv=KV, d=D)
     deepseek = dict(h=32, kv=32, d=128)
     seamless = dict(h=16, kv=16, d=64, s=PROMPT_LEN)
+    mla = dict(h=128, kv=128, d=192, v_dim=128)
     cases = [(f"T={t} causal", t, True, 0, qwen2) for t in (8, 16, 37, 128)]
     cases += [("T=128 causal window=32", 128, True, 32, qwen2),
               ("T=37 non-causal", 37, False, 0, qwen2),
@@ -489,7 +543,11 @@ def _flash_cases(gen) -> dict:
               ("T=128 causal keys permuted", 128, True, 0,
                dict(qwen2, permuted=True)),
               ("D=48 H=4 KV=2 T=37 causal", 37, True, 0,
-               dict(h=4, kv=2, d=48))]
+               dict(h=4, kv=2, d=48)),
+              ("MLA heads (D=192, V padded from 128) T=16 causal", 16, True,
+               0, mla),
+              ("MLA heads (D=192, V padded from 128) T=1024 causal", 1024,
+               True, 0, mla)]
     row = None
     for dtype in (torch.float32, torch.bfloat16):
         for label, t, causal, window, shape in cases:
@@ -846,16 +904,19 @@ def _n_layers(stages, mixer: str) -> int:
 
 def _expected_launches(cfg, prefills: int, tokens: int) -> dict[str, int]:
     """One launch per layer per prefill (flash for decoder and encoder
-    self-attention and for cross-attention, sLSTM scan over the prompt) and
-    per decode token (decode attention, flash for cross-attention, one
-    sLSTM step)."""
+    self-attention, for MLA's expanded prefill and for cross-attention,
+    sLSTM scan over the prompt) and per decode token (decode attention for
+    attention layers, none for MLA's absorbed decode, flash for
+    cross-attention, one sLSTM step).  Mamba, MoE and the FFNs launch none
+    of the port's kernels."""
     attn, slstm = _n_layers(cfg.stages, "attn"), _n_layers(cfg.stages,
                                                           "slstm")
+    mla = _n_layers(cfg.stages, "mla")
     enc = _n_layers(cfg.encoder_stages, "attn")
     cross = sum(st.repeats for st in cfg.stages for ld in st.pattern
                 if ld.cross_attn)
     return {"decode_attention": attn * tokens,
-            "flash_attention": (attn + enc + cross) * prefills
+            "flash_attention": (attn + mla + enc + cross) * prefills
             + cross * tokens,
             "slstm_scan": slstm * (prefills + tokens), "halo_conv2d": 0}
 
@@ -876,29 +937,31 @@ def _launches() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def phase_serve(arch: str) -> dict[str, int]:
-    """Serve the request mix on ``arch`` at full width; returns each
-    kernel's launches in the engine run."""
-    cfg = get_config(arch)
+def phase_serve(arch: str, keep, cpu_cut) -> dict[str, int]:
+    """Serve the request mix on ``arch`` at full width (its decoder cut to
+    ``keep`` where given, see :func:`_cut`); returns each kernel's launches
+    in the engine run.  The cost model's own weights are freed before the
+    served ones are made."""
+    cfg = _cut(get_config(arch), keep)
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, 0, device="cuda")
-    n_params = sum(t.numel() for t in _leaves(params))
-    torch.cuda.synchronize()
-    print(f"[serve] {arch}: {cfg.n_layers} layers d={cfg.d_model} "
-          f"H={cfg.n_heads} KV={cfg.n_kv_heads} D={cfg.resolved_head_dim} "
-          f"d_ff={cfg.d_ff} vocab={cfg.padded_vocab}, {n_params} params "
-          f"({cfg.param_dtype}) initialised in "
-          f"{time.perf_counter() - t0:.2f} s")
-    if arch == "xlstm-1.3b" and n_params != XLSTM_PARAMS:
-        raise AssertionError(f"xlstm-1.3b holds {n_params} params, the JAX "
-                             f"tree {XLSTM_PARAMS}")
-
     t0 = time.perf_counter()
     cost = measure_cost_model(cfg, prompt_len=PROMPT_LEN,
                               cache_len=CACHE_LEN, reps=3, device="cuda")
     print(f"[serve] {arch} cost model in {time.perf_counter() - t0:.2f} s: "
           f"prefill {cost.prefill[1]}, decode {cost.decode}")
+    gc.collect()                        # the cost model's own weights
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    print(f"[serve] {arch}: {cfg.n_layers} layers"
+          f"{_cut_note(arch, cfg, keep)} d={cfg.d_model} H={cfg.n_heads} "
+          f"KV={cfg.n_kv_heads} D={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.padded_vocab}, {n_params} params "
+          f"({_nbytes(*_leaves(params)) / 1e9:.2f} GB, {cfg.param_dtype}) "
+          f"initialised in {time.perf_counter() - t0:.2f} s")
+    _check_params(arch, n_params)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN),
@@ -952,9 +1015,7 @@ def phase_serve(arch: str) -> dict[str, int]:
     print(f"[serve] {arch} kernel launches in the engine run "
           f"({prefills[0]} prefills, {tokens[0]} decode tokens): "
           + ", ".join(f"{k}={v}" for k, v in launches.items()))
-    print(f"[serve] {arch} peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-          "(max_memory_allocated over init, cost model and engine run)")
+    _peak_memory("[serve]", arch, "cost model, init, steps and engine run")
     bad_hp = [(r.rid, r.state) for r in hp_reqs if r.state != "done"]
     if bad_hp:
         raise AssertionError(f"HP requests not done: {bad_hp}")
@@ -972,7 +1033,8 @@ def phase_serve(arch: str) -> dict[str, int]:
     if arch == "xlstm-1.3b":
         _check_xlstm_logits(cfg, params, reqs[0].prompt)
     else:
-        _check_against_cpu(cfg, params, {"tokens": reqs[0].prompt})
+        _check_against_cpu(*_sub(cfg, params, cpu_cut),
+                           {"tokens": reqs[0].prompt})
     return launches
 
 
@@ -1050,9 +1112,102 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-def _tree_to(tree, device):
-    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+def _tree_map(tree, fn):
+    return {k: _tree_map(v, fn) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
+
+
+def _tree_to(tree, device):
+    return _tree_map(tree, lambda v: v.to(device))
+
+
+def _stages(cfg, keep) -> tuple:
+    return tuple(StageDef(tuple(cfg.stages[i].pattern[j] for j in slots),
+                          reps) for i, slots, reps in keep)
+
+
+def _cut(cfg, keep=None, n_modality: int | None = None):
+    """``cfg`` with its decoder cut to ``keep`` ((stage, pattern slots,
+    repeats) kept, in order; None: all) and, for a decoder-only modality
+    model, ``n_modality`` prefix positions.  Each kept layer keeps its kind
+    and full width."""
+    if keep is not None:
+        stages = _stages(cfg, keep)
+        cfg = replace(cfg, stages=stages, n_layers=sum(
+            len(st.pattern) * st.repeats for st in stages))
+    if n_modality is not None:
+        cfg = replace(cfg, n_modality_tokens=n_modality)
+    return cfg
+
+
+def _sub(cfg, params, keep):
+    """``cfg`` and ``params`` cut to ``keep`` (as :func:`_cut`; None: the
+    whole model), the kept layers' weights as views of ``params``."""
+    if keep is None:
+        return cfg, params
+    small = {k: v for k, v in params.items() if not k.startswith("dec")}
+    for n, (i, slots, reps) in enumerate(keep):
+        small[f"dec{n}"] = {
+            f"p{m}": _tree_map(params[f"dec{i}"][f"p{j}"],
+                               lambda v, reps=reps: v[:reps])
+            for m, j in enumerate(slots)}
+    return _cut(cfg, keep), small
+
+
+def _kinds(cfg) -> str:
+    """The decoder's layer kinds, stage by stage."""
+    return ", ".join(
+        f"{st.repeats} x " + " + ".join(f"{ld.mixer}/{ld.ffn}"
+                                        for ld in st.pattern)
+        for st in cfg.stages)
+
+
+def _cut_note(arch: str, cfg, keep) -> str:
+    if keep is None:
+        return ""
+    return f" (cut from {get_config(arch).n_layers}: {_kinds(cfg)})"
+
+
+def _check_params(arch: str, n_params: int) -> None:
+    if arch in JAX_PARAMS and n_params != JAX_PARAMS[arch]:
+        raise AssertionError(f"{arch} holds {n_params} params, the JAX tree "
+                             f"{JAX_PARAMS[arch]}")
+
+
+def _peak_memory(tag: str, arch: str, over: str) -> None:
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{tag} {arch} peak device memory {peak / 1e9:.2f} GB "
+          f"({peak / 2**30:.2f} GiB; max_memory_allocated over {over})")
+    if peak >= CARD_BYTES:
+        raise AssertionError(f"{arch}: peak device memory {peak} B")
+
+
+def _print_gaps(tag: str, label: str, **runs: list) -> None:
+    """The smallest router gap of each run (MoE models only)."""
+    if all(runs.values()):
+        mins = ", ".join(f"{name} {min(g):.3g}" for name, g in runs.items())
+        print(f"{tag} {label}: smallest router gap between a token's k-th "
+              f"and (k+1)-th score: {mins} over "
+              f"{len(next(iter(runs.values())))} routings")
+
+
+@contextmanager
+def _router_gaps(gaps: list):
+    """Records, for each MoE routing, the smallest gap between a token's
+    k-th and (k+1)-th router score: a top-k flip between two runs shows
+    where that gap is near their difference."""
+    top_k = FF._top_k
+
+    def spy(scores, k):
+        vals = torch.sort(scores.float(), dim=-1, descending=True).values
+        gaps.append(float((vals[..., k - 1] - vals[..., k]).min()))
+        return top_k(scores, k)
+
+    FF._top_k = spy
+    try:
+        yield
+    finally:
+        FF._top_k = top_k
 
 
 def _logits(cfg, params, batch: dict, dev, cache_len: int = CACHE_LEN,
@@ -1092,11 +1247,17 @@ def _compare_logits(tag: str, label: str, got: list, want: list) -> None:
 def _check_against_cpu(cfg, params, batch: dict, tag: str = "[serve]",
                        cache_len: int = CACHE_LEN,
                        decode: torch.Tensor | None = None) -> None:
-    """The card (kernels) against the CPU (plain versions)."""
-    _compare_logits(tag, f"{cfg.name} card vs CPU",
-                    _logits(cfg, params, batch, "cuda", cache_len, decode),
-                    _logits(cfg, _tree_to(params, "cpu"), batch, "cpu",
-                            cache_len, decode))
+    """The card (kernels) against the CPU (plain versions); for an MoE
+    model with the smallest router top-k gap of each run."""
+    card, cpu = [], []
+    with _router_gaps(card):
+        got = _logits(cfg, params, batch, "cuda", cache_len, decode)
+    with _router_gaps(cpu):
+        want = _logits(cfg, _tree_to(params, "cpu"), batch, "cpu",
+                       cache_len, decode)
+    label = f"{cfg.name} card vs CPU ({cfg.n_layers} layer(s))"
+    _print_gaps(tag, label, card=card, CPU=cpu)
+    _compare_logits(tag, label, got, want)
 
 
 @torch.inference_mode()
@@ -1127,11 +1288,13 @@ def _check_xlstm_logits(cfg, params, prompt) -> None:
 # --------------------------------------------------------------------------- #
 
 
-# arch, decoder layers kept (None: all), and the cut of the card-vs-CPU
-# comparison (decoder layers, modality positions; None: the whole model)
+# arch, cut of the decoder (None: all), and the cut of the card-vs-CPU
+# comparison with the modality positions it keeps (None: the whole model)
 MODELS = (("deepseek-7b", None, None),
           ("seamless-m4t-medium", None, None),
-          ("llava-next-34b", 12, (1, 64)))
+          ("llava-next-34b", ((0, (0,), 12),), (FIRST_LAYER, 64)),
+          ("deepseek-v3-671b", V3_CUT, (FIRST_LAYER, None)),
+          ("jamba-1.5-large-398b", JAMBA_CUT, (FIRST_LAYER, None)))
 MODEL_TOKENS = 8                      # decode tokens held against references
 
 
@@ -1141,22 +1304,13 @@ def _plain_attention():
     place (on the card, no launch counted)."""
     A.flash_attention, A.decode_attention = (flash_attention_ref,
                                              decode_attention_ref)
+    L.flash_attention = flash_attention_ref
     try:
         yield
     finally:
         A.flash_attention, A.decode_attention = (flash_attention,
                                                  decode_attention)
-
-
-def _cut(cfg, layers: int | None, n_modality: int | None = None):
-    """``cfg`` with its decoder cut to ``layers`` (same layer kind) and, for
-    a decoder-only modality model, ``n_modality`` prefix positions."""
-    if layers is not None:
-        cfg = replace(cfg, n_layers=layers,
-                      stages=(StageDef(cfg.stages[0].pattern, layers),))
-    if n_modality is not None:
-        cfg = replace(cfg, n_modality_tokens=n_modality)
-    return cfg
+        L.flash_attention = flash_attention
 
 
 def _model_batch(cfg, gen) -> dict:
@@ -1172,14 +1326,16 @@ def _model_batch(cfg, gen) -> dict:
     return batch
 
 
-def phase_model(arch: str, layers: int | None, cpu_cut) -> None:
+def phase_model(arch: str, keep, cpu_cut) -> None:
     """A model the engine does not serve (it passes tokens only, as the
-    JAX engine does), at full width with random weights from seed 0: the
-    cost model, step device times and ``[profile]`` lines at the model's
-    real positions, then one prefill and MODEL_TOKENS decode tokens with
-    exact launch counts, their logits held against the plain versions on
-    the card and against the CPU (at ``cpu_cut`` where given)."""
-    cfg = _cut(get_config(arch), layers)
+    JAX engine does), at full width (its decoder cut to ``keep`` where
+    given) with random weights from seed 0: the cost model, step device
+    times and ``[profile]`` lines at the model's real positions, then one
+    prefill and MODEL_TOKENS decode tokens with exact launch counts, their
+    logits held against the plain versions on the card and against the CPU
+    (at ``cpu_cut`` = (layers kept, modality positions) where given).  The
+    cost model's own weights are freed before the model's are made."""
+    cfg = _cut(get_config(arch), keep)
     prefix = M.prefix_len(cfg)
     cache_len = prefix + CACHE_LEN
     torch.cuda.reset_peak_memory_stats()
@@ -1200,24 +1356,28 @@ def phase_model(arch: str, layers: int | None, cpu_cut) -> None:
     batch = _model_batch(cfg, gen)
     decode = torch.randint(0, cfg.vocab_size, (1, MODEL_TOKENS),
                            generator=gen, device="cuda")
-    cut = "" if layers is None else \
-        f", decoder cut to {layers} of {get_config(arch).n_layers} layers"
     emb = batch.get("modality_emb")
+    n_params = sum(t.numel() for t in leaves)
     print(f"[model] {arch}: {cfg.n_layers} decoder layers"
-          f"{cut}, {cfg.n_encoder_layers} encoder layers, d={cfg.d_model} "
-          f"H={cfg.n_heads} KV={cfg.n_kv_heads} D={cfg.resolved_head_dim} "
-          f"d_ff={cfg.d_ff} vocab={cfg.padded_vocab}, modality_emb "
-          f"{'-' if emb is None else list(emb.shape)}, "
-          f"{sum(t.numel() for t in leaves)} params, "
+          f"{_cut_note(arch, cfg, keep)}, {cfg.n_encoder_layers} encoder "
+          "layers, "
+          f"d={cfg.d_model} H={cfg.n_heads} KV={cfg.n_kv_heads} "
+          f"D={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.padded_vocab}, modality_emb "
+          f"{'-' if emb is None else list(emb.shape)}, {n_params} params, "
           f"{_nbytes(*leaves) / 1e9:.2f} GB ({cfg.param_dtype}) initialised "
           f"in {time.perf_counter() - t0:.2f} s; cache {cache_len} slots")
+    _check_params(arch, n_params)
+    del leaves
     _step_device_times("[model]", cfg, params, cost, batch, cache_len,
                        prefix + PROMPT_LEN, calls=1 if prefix else 3)
     _counters_at_rest(f"{arch} step replays")
 
     with torch.inference_mode():
         _reset_launches()
-        got = _logits(cfg, params, batch, "cuda", cache_len, decode)
+        gaps: list = []
+        with _router_gaps(gaps):
+            got = _logits(cfg, params, batch, "cuda", cache_len, decode)
         torch.cuda.synchronize()
         launches = _launches()
         want = _expected_launches(cfg, 1, MODEL_TOKENS)
@@ -1227,28 +1387,28 @@ def phase_model(arch: str, layers: int | None, cpu_cut) -> None:
         if launches != want:
             raise AssertionError(f"{arch}: kernel launches {launches}, "
                                  f"expected {want}")
-        with _plain_attention():
+        plain_gaps: list = []
+        with _plain_attention(), _router_gaps(plain_gaps):
             plain = _logits(cfg, params, batch, "cuda", cache_len, decode)
+        _print_gaps("[model]", f"{arch} kernels vs plain on the card",
+                    kernels=gaps, plain=plain_gaps)
         _compare_logits("[model]", f"{arch} kernels vs plain on the card",
                         got, plain)
-    print(f"[model] {arch} peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-          "(max_memory_allocated over cost model, init, steps and logits)")
+    _peak_memory("[model]", arch, "cost model, init, steps and logits")
     if cpu_cut is None:
         _check_against_cpu(cfg, params, batch, "[model]", cache_len, decode)
         return
-    del params, leaves
-    gc.collect()
-    torch.cuda.empty_cache()
-    n_layers, n_mod = cpu_cut
-    small_cfg = _cut(cfg, n_layers, n_mod)
-    small = M.init_params(small_cfg, 0, device="cuda")
-    small_batch = {"tokens": batch["tokens"],
-                   "modality_emb": batch["modality_emb"][:, :n_mod]}
-    print(f"[model] {arch} card vs CPU at a cut: {n_layers} decoder "
-          f"layer(s) of full width, {n_mod} patches + {PROMPT_LEN} tokens")
+    layers, n_mod = cpu_cut
+    small_cfg, small = _sub(_cut(cfg, n_modality=n_mod), params, layers)
+    small_batch = dict(batch)
+    if n_mod is not None:
+        small_batch["modality_emb"] = batch["modality_emb"][:, :n_mod]
+    print(f"[model] {arch} card vs CPU at a cut: {small_cfg.n_layers} "
+          f"decoder layer(s) of full width ({_kinds(small_cfg)}), "
+          f"{M.prefix_len(small_cfg)} modality positions + {PROMPT_LEN} "
+          "tokens")
     _check_against_cpu(small_cfg, small, small_batch, "[model]",
-                       n_mod + CACHE_LEN, decode)
+                       M.prefix_len(small_cfg) + CACHE_LEN, decode)
 
 
 def main() -> int:
@@ -1270,17 +1430,17 @@ def main() -> int:
     # sLSTM scan (the first served model that launches it); the standalone
     # halo conv block carries those of its own phase
     launches = {}
-    for arch in ARCHS:
+    for arch, keep, cpu_cut in SERVED:
         t1 = time.perf_counter()
-        for name, n in phase_serve(arch).items():
+        for name, n in phase_serve(arch, keep, cpu_cut).items():
             if n:
                 launches.setdefault(name, n)
         gc.collect()                        # free this model before the next
         torch.cuda.empty_cache()
         print(f"[time] serve {arch}: {time.perf_counter() - t1:.1f} s")
-    for arch, layers, cpu_cut in MODELS:
+    for arch, keep, cpu_cut in MODELS:
         t1 = time.perf_counter()
-        phase_model(arch, layers, cpu_cut)
+        phase_model(arch, keep, cpu_cut)
         gc.collect()
         torch.cuda.empty_cache()
         print(f"[time] model {arch}: {time.perf_counter() - t1:.1f} s")

@@ -1,9 +1,9 @@
 """Architecture registry of the port: ``arch id`` -> ModelConfig.
 
-Listed: every architecture whose layers are attention with a dense FFN
-(the dense GQA decoders, llava-next-34b's modality prefix and
-seamless-m4t-medium's encoder-decoder) and xLSTM.  The MoE, MLA and Mamba
-architectures wait for their mixers (ROADMAP.md, Queue 1 item 9).
+Every architecture of the JAX package's registry: the dense GQA decoders,
+llava-next-34b's modality prefix, seamless-m4t-medium's encoder-decoder,
+xLSTM, the MLA + MoE DeepSeek models and Jamba's Mamba + attention + MoE
+hybrid.
 """
 from __future__ import annotations
 
@@ -19,6 +19,9 @@ _MODULES = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "llava-next-34b": "llava_next_34b",
     "seamless-m4t-medium": "seamless_m4t_medium",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -7,10 +7,10 @@ for leaf; ``jax.lax.scan`` over that axis becomes a Python loop that takes
 one layer's views per step.  Caches are stacked the same way, and each
 layer writes its slot of them in place.
 
-Ported layers: the attention, mLSTM and sLSTM mixers with a dense FFN or
-none (xLSTM blocks carry their own projections), and the cross-attention
-of encoder-decoder layers.  Mamba, MLA and MoE raise
-``NotImplementedError``.
+Mixers: attention, MLA, Mamba, mLSTM and sLSTM; FFNs: dense, MoE or none
+(xLSTM blocks carry their own projections); cross-attention for the
+decoder layers of an encoder-decoder.  A layer returns the MoE aux loss
+beside its output, as the JAX one does.
 """
 from __future__ import annotations
 
@@ -20,12 +20,8 @@ from typing import Optional
 import torch
 
 from .config import LayerDef, ModelConfig, StageDef
-from .layers import attention, ffn, xlstm
-from .layers.common import rmsnorm, rmsnorm_init
-
-_ROADMAP_MIXERS = "ROADMAP.md, Queue 1 item 9 (other mixers, by architecture)"
-_MIXERS = ("attn", "mlstm", "slstm")
-_FFNS = ("dense", "none")
+from .layers import attention, ffn, mamba, mla, xlstm
+from .layers.common import draws_into, rmsnorm, rmsnorm_init
 
 
 @dataclass
@@ -38,16 +34,7 @@ class LayerCtx:
     window: int = 0                       # sliding window (0 = full)
     pos: Optional[int] = None             # decode: current position (host)
     enc_out: Optional[torch.Tensor] = None  # encoder output for cross-attn
-
-
-def check_layer(ld: LayerDef) -> None:
-    """Raise for a layer kind the port does not run yet."""
-    if ld.mixer not in _MIXERS:
-        raise NotImplementedError(
-            f"mixer {ld.mixer!r} is not ported yet: {_ROADMAP_MIXERS}")
-    if ld.ffn not in _FFNS:
-        raise NotImplementedError(
-            f"ffn {ld.ffn!r} is not ported yet: {_ROADMAP_MIXERS}")
+    moe_group_size: int = 256
 
 
 # --------------------------------------------------------------------------- #
@@ -55,17 +42,28 @@ def check_layer(ld: LayerDef) -> None:
 # --------------------------------------------------------------------------- #
 
 
+_MIXER_INIT = {
+    "attn": attention.attn_init,
+    "mla": mla.mla_init,
+    "mamba": mamba.mamba_init,
+    "mlstm": xlstm.mlstm_init,
+    "slstm": xlstm.slstm_init,
+}
+
+
 def layer_init(generator: torch.Generator, ld: LayerDef, cfg: ModelConfig,
                dtype: torch.dtype) -> dict:
-    check_layer(ld)
+    if ld.mixer not in _MIXER_INIT:
+        raise ValueError(f"unknown mixer {ld.mixer!r}")
     dev = generator.device
-    init = {"attn": attention.attn_init, "mlstm": xlstm.mlstm_init,
-            "slstm": xlstm.slstm_init}[ld.mixer]
     p = {"norm1": rmsnorm_init(cfg.d_model, dtype, dev),
-         "mixer": init(generator, cfg, dtype)}
-    if ld.ffn == "dense":
+         "mixer": _MIXER_INIT[ld.mixer](generator, cfg, dtype)}
+    if ld.ffn != "none":
         p["norm2"] = rmsnorm_init(cfg.d_model, dtype, dev)
-        p["ffn"] = ffn.ffn_init(generator, cfg.d_model, cfg.d_ff, dtype)
+        if ld.ffn == "dense":
+            p["ffn"] = ffn.ffn_init(generator, cfg.d_model, cfg.d_ff, dtype)
+        else:
+            p["ffn"] = ffn.moe_init(generator, cfg, dtype)
     if ld.cross_attn:
         p["norm_x"] = rmsnorm_init(cfg.d_model, dtype, dev)
         p["cross"] = attention.attn_init(generator, cfg, dtype)
@@ -75,17 +73,25 @@ def layer_init(generator: torch.Generator, ld: LayerDef, cfg: ModelConfig,
 def layer_cache_init(ld: LayerDef, cfg: ModelConfig, batch: int,
                      cache_len: int, dtype: torch.dtype,
                      device: torch.device, enc_len: int = 0) -> dict:
-    """The mixer's cache under "self"; a cross layer's encoder K/V
-    [B, enc_len, KV, hd] under "cross"."""
-    check_layer(ld)
-    if ld.mixer == "mlstm":
-        c = {"self": xlstm.init_mlstm_cache(batch, cfg, dtype, device)}
-    elif ld.mixer == "slstm":
-        c = {"self": xlstm.init_slstm_cache(batch, cfg, device)}
-    else:
-        c = {"self": attention.init_kv_cache(
+    """The mixer's cache under "self" (attention: K/V slots; MLA: the
+    latents ``c_kv``, ``k_rope`` and their slot positions; Mamba: the conv
+    window and SSM state; xLSTM: its recurrent state); a cross layer's
+    encoder K/V [B, enc_len, KV, hd] under "cross"."""
+    if ld.mixer == "attn":
+        self_cache = attention.init_kv_cache(
             batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim, dtype,
-            device)}
+            device)
+    elif ld.mixer == "mla":
+        self_cache = mla.init_mla_cache(batch, cache_len, cfg, dtype, device)
+    elif ld.mixer == "mamba":
+        self_cache = mamba.init_mamba_cache(batch, cfg, dtype, device)
+    elif ld.mixer == "mlstm":
+        self_cache = xlstm.init_mlstm_cache(batch, cfg, dtype, device)
+    elif ld.mixer == "slstm":
+        self_cache = xlstm.init_slstm_cache(batch, cfg, device)
+    else:
+        raise ValueError(f"unknown mixer {ld.mixer!r}")
+    c = {"self": self_cache}
     if ld.cross_attn:
         shape = (batch, enc_len, cfg.n_kv_heads, cfg.resolved_head_dim)
         c["cross"] = {name: torch.zeros(shape, dtype=dtype, device=device)
@@ -99,12 +105,12 @@ def layer_apply(
     x: torch.Tensor,
     ctx: LayerCtx,
     cache: Optional[dict] = None,
-) -> tuple[torch.Tensor, Optional[dict]]:
-    """Returns (x, cache); a given cache is written in place.  A cross
-    layer reads the encoder K/V from ``cache["cross"]`` where the cache
-    holds them (decode, and prefill once it filled them), else computes
-    them from ``ctx.enc_out``."""
-    check_layer(ld)
+) -> tuple[torch.Tensor, Optional[dict], torch.Tensor | float]:
+    """Returns (x, cache, aux); a given cache is written in place.  ``aux``
+    is the MoE layer's load-balance loss (an f32 scalar tensor), 0.0 for a
+    layer without one.  A cross layer reads the encoder K/V from
+    ``cache["cross"]`` where the cache holds them (decode, and prefill once
+    it filled them), else computes them from ``ctx.enc_out``."""
     cfg = ctx.cfg
     self_cache = cache.get("self") if cache else None
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
@@ -114,20 +120,34 @@ def layer_apply(
             causal=ctx.causal, window=ctx.window, cache=self_cache,
             pos=ctx.pos)
         out = attention.attn_out_project(params["mixer"], out)
+    elif ld.mixer == "mla":
+        out, _ = mla.mla_apply(params["mixer"], h, cfg,
+                               positions=ctx.positions, window=ctx.window,
+                               cache=self_cache, pos=ctx.pos)
+    elif ld.mixer == "mamba":
+        out, _ = mamba.mamba_apply(params["mixer"], h, cfg, cache=self_cache)
     elif ld.mixer == "mlstm":
         out, _ = xlstm.mlstm_apply(params["mixer"], h, cfg, cache=self_cache)
-    else:
+    elif ld.mixer == "slstm":
         out, _ = xlstm.slstm_apply(params["mixer"], h, cfg, cache=self_cache)
+    else:
+        raise ValueError(f"unknown mixer {ld.mixer!r}")
     x = x + out
     if ld.cross_attn:
         hx = rmsnorm(params["norm_x"], x, cfg.norm_eps)
         ckv = cache["cross"] if cache and "cross" in cache else \
             attention.cross_kv(params["cross"], ctx.enc_out)
         x = x + attention.cross_attend(params["cross"], hx, ckv, cfg)
-    if ld.ffn == "dense":
+    aux = 0.0
+    if ld.ffn != "none":
         h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
-        x = x + ffn.ffn_apply(params["ffn"], h2)
-    return x, cache
+        if ld.ffn == "dense":
+            x = x + ffn.ffn_apply(params["ffn"], h2)
+        else:
+            y, aux = ffn.moe_apply(params["ffn"], h2, cfg,
+                                   group_size=ctx.moe_group_size)
+            x = x + y
+    return x, cache, aux
 
 
 # --------------------------------------------------------------------------- #
@@ -135,30 +155,49 @@ def layer_apply(
 # --------------------------------------------------------------------------- #
 
 
-def _stacked(repeats: int, make) -> dict:
-    """``repeats`` trees from ``make()``, called in order, stacked leaf by
-    leaf along a new leading axis.  Each tree is copied into its slot as
-    it is made, so at most one unstacked tree is alive: a stage's params
-    or caches do not exist twice (a full-width stage is tens of GB)."""
-    first = make()
+def _map(tree: dict, fn) -> dict:
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
 
-    def empty(tree):
-        return {k: empty(v) if isinstance(v, dict)
-                else v.new_empty((repeats, *v.shape))
-                for k, v in tree.items()}
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def _stacked(repeats: int, make, device: torch.device) -> dict:
+    """``repeats`` trees from ``make()``, called in order, stacked leaf by
+    leaf along a new leading axis, without a second copy of any layer (a
+    full-width MoE layer is tens of GB).  One repeat: the tree itself,
+    viewed with a leading axis of 1.  More: a dry run of ``make`` (no draw,
+    meta tensors: ``common.draws_into``) gives the shapes; then each repeat
+    draws every random leaf straight into its slot, ``normal_init`` being
+    called in the same order every time, and its other leaves (norm scales,
+    biases, caches) are copied in."""
+    if repeats == 1:
+        return _map(make(), lambda v: v.unsqueeze(0))
+    drawn: list = []
+    with draws_into(record=drawn, dry=True):
+        shapes = make()
+    out = _map(shapes, lambda v: torch.empty((repeats, *v.shape),
+                                             dtype=v.dtype, device=device))
+    where = {id(a): b for a, b in zip(_leaves(shapes), _leaves(out))}
+    if any(id(t) not in where for t in drawn):
+        raise RuntimeError("a layer's random leaf is not a normal_init draw "
+                           "as it is; it cannot be drawn into its slot")
+    stacked = [where[id(t)] for t in drawn]
+    del shapes, drawn, where
 
     def put(dst, src, r):
         for k, v in src.items():
             if isinstance(v, dict):
                 put(dst[k], v, r)
-            else:
+            elif v.data_ptr() != dst[k][r].data_ptr():   # not drawn there
                 dst[k][r] = v
 
-    out = empty(first)
-    put(out, first, 0)
-    del first
-    for r in range(1, repeats):
-        put(out, make(), r)
+    for r in range(repeats):
+        with draws_into(slots=[t[r] for t in stacked]):
+            put(out, make(), r)
     return out
 
 
@@ -173,7 +212,8 @@ def stage_init(generator: torch.Generator, stage: StageDef,
     """Stacked params: {'p0'..'pN': layer params [repeats, ...]}."""
     return {
         f"p{i}": _stacked(stage.repeats,
-                          lambda ld=ld: layer_init(generator, ld, cfg, dtype))
+                          lambda ld=ld: layer_init(generator, ld, cfg, dtype),
+                          generator.device)
         for i, ld in enumerate(stage.pattern)
     }
 
@@ -185,7 +225,7 @@ def stage_cache_init(stage: StageDef, cfg: ModelConfig, batch: int,
         f"p{i}": _stacked(stage.repeats,
                           lambda ld=ld: layer_cache_init(
                               ld, cfg, batch, cache_len, dtype, device,
-                              enc_len))
+                              enc_len), device)
         for i, ld in enumerate(stage.pattern)
     }
 
@@ -196,11 +236,14 @@ def stage_apply(
     x: torch.Tensor,
     ctx: LayerCtx,
     caches: Optional[dict] = None,
-) -> tuple[torch.Tensor, Optional[dict]]:
+) -> tuple[torch.Tensor, Optional[dict], torch.Tensor | float]:
     """Loop over stage.repeats; inside, the (short) pattern.  Returns
-    (x, caches); given caches are written in place."""
+    (x, caches, summed aux loss); given caches are written in place."""
+    aux = 0.0
     for r in range(stage.repeats):
         for i, ld in enumerate(stage.pattern):
             c = take_layer(caches[f"p{i}"], r) if caches is not None else None
-            x, _ = layer_apply(take_layer(params[f"p{i}"], r), ld, x, ctx, c)
-    return x, caches
+            x, _, a = layer_apply(take_layer(params[f"p{i}"], r), ld, x, ctx,
+                                  c)
+            aux = aux + a
+    return x, caches, aux

@@ -23,9 +23,9 @@ def _map(tree, fn):
 
 
 # Leaves the JAX package makes in float32 whatever the param dtype: the
-# mLSTM gate projections and biases, and the sLSTM bias ``b`` (the mixer
-# that also holds the recurrent ``r``).
-_F32_LEAVES = frozenset({"w_i", "w_f", "b_i", "b_f"})
+# mLSTM gate projections and biases, the MoE ``router``, Mamba's ``a_log``,
+# and the sLSTM bias ``b`` (the mixer that also holds the recurrent ``r``).
+_F32_LEAVES = frozenset({"w_i", "w_f", "b_i", "b_f", "router", "a_log"})
 
 
 def _f32_by_design(parent: dict, key: str) -> bool:
@@ -43,8 +43,9 @@ def params_from_numpy(tree: dict, device: str | torch.device,
                       dtype: Optional[torch.dtype] = None) -> dict:
     """Param tree of numpy arrays -> tensors on ``device``.  ``dtype`` casts
     every floating leaf but those the JAX package keeps in float32 by design
-    (xLSTM's ``w_i``, ``w_f``, ``b_i``, ``b_f`` and the sLSTM bias ``b``),
-    whatever the source tree's dtype."""
+    (xLSTM's ``w_i``, ``w_f``, ``b_i``, ``b_f`` and the sLSTM bias ``b``,
+    the MoE ``router``, Mamba's ``a_log``), whatever the source tree's
+    dtype."""
     dev = torch.device(device)
     out = _map(tree, _tensor)
     if dtype is not None:

@@ -1,2 +1,2 @@
-"""Layer primitives of the port: common ops, GQA attention, dense FFN,
-xLSTM's mLSTM and sLSTM blocks."""
+"""Layer primitives of the port: common ops, GQA attention, MLA, Mamba,
+the dense and MoE FFNs, xLSTM's mLSTM and sLSTM blocks."""

@@ -6,18 +6,70 @@ the same distributions as the JAX ones, not the same numbers.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
+from contextvars import ContextVar
+from typing import Iterator, Optional
+
 import torch
 
 # --------------------------------------------------------------------------- #
 # Initialisers                                                                #
 # --------------------------------------------------------------------------- #
 
+# While ``draws_into`` is active: the tensors that ``normal_init`` draws
+# into, in the order it is called; the list it appends each tensor it
+# returns to; and whether it draws nothing and returns meta tensors (a dry
+# run that gives shapes).  Lets a stage's stacked params be drawn straight
+# into their slots.
+_draw_slots: ContextVar[Optional[Iterator[torch.Tensor]]] = \
+    ContextVar("draw_slots", default=None)
+_draw_log: ContextVar[Optional[list]] = ContextVar("draw_log", default=None)
+_draw_dry: ContextVar[bool] = ContextVar("draw_dry", default=False)
+
+
+@contextmanager
+def draws_into(slots: Optional[list] = None, record: Optional[list] = None,
+               dry: bool = False):
+    """Within the block, ``normal_init`` draws into the next tensor of
+    ``slots`` (the shape and dtype it would make, in call order) instead of
+    allocating one, or with ``dry`` draws nothing and returns a meta tensor
+    (the generator does not advance); it appends every tensor it returns to
+    ``record``."""
+    tokens = (_draw_slots.set(None if slots is None else iter(slots)),
+              _draw_log.set(record), _draw_dry.set(dry))
+    try:
+        yield
+    finally:
+        _draw_slots.reset(tokens[0])
+        _draw_log.reset(tokens[1])
+        _draw_dry.reset(tokens[2])
+
 
 def normal_init(generator: torch.Generator, shape, scale: float,
                 dtype: torch.dtype) -> torch.Tensor:
-    x = torch.randn(tuple(shape), generator=generator,
-                    device=generator.device, dtype=torch.float32)
-    return (scale * x).to(dtype)
+    """``scale`` x a standard normal draw in f32, cast to ``dtype``.  Scaled
+    in place: an expert tensor of deepseek-v3 is 15 GB in f32."""
+    shape = tuple(shape)
+    slots = _draw_slots.get()
+    slot = None if slots is None else next(slots)
+    if slot is not None and (tuple(slot.shape) != shape or
+                             slot.dtype != dtype):
+        raise ValueError(f"draw of {shape} {dtype} into a slot of "
+                         f"{tuple(slot.shape)} {slot.dtype}")
+    if _draw_dry.get():
+        x = torch.empty(shape, dtype=dtype, device="meta")
+    elif slot is not None and dtype == torch.float32:
+        x = torch.randn(shape, generator=generator, device=generator.device,
+                        dtype=torch.float32, out=slot).mul_(scale)
+    else:
+        x = torch.randn(shape, generator=generator, device=generator.device,
+                        dtype=torch.float32).mul_(scale).to(dtype)
+        if slot is not None:
+            x = slot.copy_(x)
+    log = _draw_log.get()
+    if log is not None:
+        log.append(x)
+    return x
 
 
 def dense_init(generator: torch.Generator, in_dim: int, *out_dims: int,
@@ -102,6 +154,13 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # Stable helpers                                                              #
 # --------------------------------------------------------------------------- #
+
+
+def softmax_f32(scores: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Softmax in f32 whatever the input dtype.  The JAX twin has no caller
+    in the JAX package (its MoE router calls ``jax.nn.softmax`` on f32
+    logits); kept for parity of the module."""
+    return torch.softmax(scores.float(), dim=dim)
 
 
 def masked_softmax(scores: torch.Tensor, mask: torch.Tensor,

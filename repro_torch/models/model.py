@@ -2,18 +2,21 @@
 decoder stages, tied or untied LM head, with init / forward / prefill /
 decode_step entry points.
 
-Port of the JAX package's ``models/model.py`` for models whose layers
-:func:`blocks.check_layer` admits (attention with a dense FFN, with or
-without cross-attention; xLSTM's mLSTM and sLSTM blocks).  Modality models
+Port of the JAX package's ``models/model.py`` for every architecture of its
+registry: attention, MLA, Mamba, mLSTM and sLSTM mixers with dense, MoE or
+no FFN, with or without cross-attention.  Modality models
 take precomputed frame or patch embeddings (``batch["modality_emb"]``)
 through a learned two-layer projector: a decoder-only model (llava)
 prepends them to the token embeddings, an encoder-decoder (seamless)
 encodes them and its decoder layers cross-attend to the encoder output.
 
 Caches are written in place: ``prefill`` fills freshly allocated caches
-(K/V slots, a cross layer's encoder K/V, or the recurrent states of the
-xLSTM layers) and ``decode_step`` updates each layer's cache in the caches
-it is given and returns the same dict.
+(K/V slots, MLA latents, a cross layer's encoder K/V, or the recurrent
+states of the Mamba and xLSTM layers) and ``decode_step`` updates each
+layer's cache in the caches it is given and returns the same dict.
+``forward`` returns the logits and the summed MoE aux loss, as the JAX one
+does; ``mtp_depth`` (deepseek-v3's multi-token prediction head) is a config
+field that the JAX model never reads, and the port ignores it too.
 """
 from __future__ import annotations
 
@@ -21,10 +24,11 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .blocks import LayerCtx, check_layer, layer_apply, stage_apply, \
-    stage_cache_init, stage_init, take_layer
+from .blocks import LayerCtx, layer_apply, stage_apply, stage_cache_init, \
+    stage_init, take_layer
 from .config import ModelConfig
 from .layers.attention import cross_kv, project_kv
+from .layers.mla import _compress
 from .layers.xlstm import fill_mlstm_cache
 from .layers.common import normal_init, dense_init, rmsnorm, rmsnorm_init
 
@@ -36,13 +40,6 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
-def check_config(cfg: ModelConfig) -> None:
-    """Raise for an architecture the port does not run yet."""
-    for st in cfg.encoder_stages + cfg.stages:
-        for ld in st.pattern:
-            check_layer(ld)
-
-
 # --------------------------------------------------------------------------- #
 # Init                                                                        #
 # --------------------------------------------------------------------------- #
@@ -52,7 +49,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device: str | torch.device = "cuda") -> Params:
     """Random params with the JAX package's distributions, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``."""
-    check_config(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -119,7 +115,7 @@ def encode(params: Params, cfg: ModelConfig,
                    causal=False)
     x = enc_input
     for i, st in enumerate(cfg.encoder_stages):
-        x, _ = stage_apply(params[f"enc{i}"], st, x, ctx)
+        x, _, _ = stage_apply(params[f"enc{i}"], st, x, ctx)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -155,19 +151,23 @@ def _decoder_input(params: Params, cfg: ModelConfig,
 # --------------------------------------------------------------------------- #
 
 
-def forward(params: Params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def forward(params: Params, cfg: ModelConfig,
+            batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """batch {"tokens": [B, T_text] int, "modality_emb": [B, S_mod,
-    modality_dim] (modality models)} -> logits [B, T, padded_vocab], T
-    counting a decoder-only model's modality positions."""
-    check_config(cfg)
+    modality_dim] (modality models)} -> (logits [B, T, padded_vocab], T
+    counting a decoder-only model's modality positions; the MoE layers'
+    summed aux loss, an f32 scalar, 0 without MoE)."""
     enc_out = _encoder_output(params, cfg, batch)
     x = _decoder_input(params, cfg, batch)
     ctx = LayerCtx(cfg=cfg, positions=_positions(x.shape[1], x.device),
                    causal=True, window=cfg.sliding_window, enc_out=enc_out)
+    aux = 0.0
     for i, st in enumerate(cfg.stages):
-        x, _ = stage_apply(params[f"dec{i}"], st, x, ctx)
+        x, _, a = stage_apply(params[f"dec{i}"], st, x, ctx)
+        aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return lm_logits(params, cfg, x)
+    return lm_logits(params, cfg, x), torch.as_tensor(
+        aux, dtype=torch.float32, device=x.device)
 
 
 # --------------------------------------------------------------------------- #
@@ -194,7 +194,6 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict,
             cache_len: int) -> tuple[torch.Tensor, Caches]:
     """Runs the full prompt (``batch`` as :func:`forward` takes it),
     returns (last-position logits [B, 1, V], filled caches)."""
-    check_config(cfg)
     enc_out = _encoder_output(params, cfg, batch)
     x = _decoder_input(params, cfg, batch)
     b, t, _ = x.shape
@@ -223,26 +222,31 @@ def _prefill_layer(p: dict, ld, x: torch.Tensor, ctx: LayerCtx, cache: dict,
                    cache_len: int) -> torch.Tensor:
     """Run the layer over the prompt and fill its cache.
 
-    Attention and mLSTM run in full-sequence mode, then recompute their
-    cacheable values (K/V, the mLSTM state and conv tail) from the same
-    normed input, as the JAX prefill does.  The sLSTM runs its one scan
-    from the fresh cache, which holds the zero state: the same call gives
-    the hidden states and writes the final (h, c, n, m) into the cache,
-    where the JAX prefill runs the recurrence a second time.  A cross layer
-    writes the encoder K/V into its cache first and the layer reads them
-    there, where the JAX prefill computes them twice."""
-    if ld.mixer == "slstm":
-        x_out, _ = layer_apply(p, ld, x, ctx, cache=cache)
+    Attention, MLA and mLSTM run in full-sequence mode, then recompute their
+    cacheable values (K/V, the MLA latents, the mLSTM state and conv tail)
+    from the same normed input, as the JAX prefill does.  Mamba and sLSTM
+    run their one recurrence from the fresh cache, which holds the zero
+    state: the same call gives the outputs and writes the final state (and
+    Mamba's conv tail) into the cache, where the JAX prefill runs the
+    recurrence a second time.  A cross layer writes the encoder K/V into its
+    cache first and the layer reads them there, where the JAX prefill
+    computes them twice."""
+    if ld.mixer in ("slstm", "mamba"):
+        x_out, _, _ = layer_apply(p, ld, x, ctx, cache=cache)
         return x_out
     cross = None
     if ld.cross_attn:
         for name, val in cross_kv(p["cross"], ctx.enc_out).items():
             cache["cross"][name].copy_(val)
         cross = {"cross": cache["cross"]}
-    x_out, _ = layer_apply(p, ld, x, ctx, cache=cross)
+    x_out, _, _ = layer_apply(p, ld, x, ctx, cache=cross)
     h = rmsnorm(p["norm1"], x, ctx.cfg.norm_eps)
     if ld.mixer == "mlstm":
         fill_mlstm_cache(p["mixer"], h, cache["self"])
+    elif ld.mixer == "mla":
+        c_kv, k_rope = _compress(p["mixer"], h, ctx.cfg, ctx.positions)
+        _scatter_tail(cache["self"], {"c_kv": c_kv, "k_rope": k_rope},
+                      ctx.positions, cache_len, ctx.window)
     else:
         _fill_kv(p["mixer"], h, ctx.cfg, ctx, cache["self"], cache_len)
     return x_out
@@ -295,7 +299,7 @@ def decode_step(params: Params, cfg: ModelConfig, caches: Caches,
     ctx = LayerCtx(cfg=cfg, positions=positions, causal=True,
                    window=cfg.sliding_window, pos=pos)
     for i, st in enumerate(cfg.stages):
-        x, _ = stage_apply(params[f"dec{i}"], st, x, ctx,
-                           caches=caches[f"dec{i}"])
+        x, _, _ = stage_apply(params[f"dec{i}"], st, x, ctx,
+                              caches=caches[f"dec{i}"])
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, cfg, x), caches

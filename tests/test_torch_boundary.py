@@ -30,7 +30,9 @@ COPIES = [f"core/{n}.py" for n in (
     "sim/events.py", "models/config.py", "configs/qwen2_0_5b.py",
     "configs/smollm_135m.py", "configs/xlstm_1_3b.py",
     "configs/deepseek_7b.py", "configs/phi3_mini_3_8b.py",
-    "configs/llava_next_34b.py", "configs/seamless_m4t_medium.py"]
+    "configs/llava_next_34b.py", "configs/seamless_m4t_medium.py",
+    "configs/deepseek_v2_236b.py", "configs/deepseek_v3_671b.py",
+    "configs/jamba_1_5_large_398b.py"]
 PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 

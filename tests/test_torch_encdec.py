@@ -190,7 +190,7 @@ def test_prefill_then_decode_matches_forward(arch):
                        cache_len=cache_len)
     tokens = _t(toks).long()
     with torch.inference_mode():
-        full = M.forward(tp, cfg, _tbatch(toks, emb))
+        full, _ = M.forward(tp, cfg, _tbatch(toks, emb))
         _close(full, jfull, LOGIT_TOL)
         pre, caches = M.prefill(tp, cfg, _tbatch(toks[:, :T], emb),
                                 cache_len)

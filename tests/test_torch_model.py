@@ -3,7 +3,11 @@
 Weights come from the JAX ``init_params`` tree through
 ``params_from_numpy``; tokens (and a modality model's frame or patch
 embeddings) are made with numpy.  Tolerance 2e-4 on logits: the
-reference's own ``TOL`` (tests/test_decode_equivalence.py).
+reference's own ``TOL`` (tests/test_decode_equivalence.py).  Tests that
+hold decode against the full forward pin the MoE capacity high, as
+tests/test_decode_equivalence.py does: capacity-based dispatch drops
+different tokens for different token counts, so it is not causal under
+drops.
 """
 from dataclasses import replace
 
@@ -27,11 +31,19 @@ TOL = 2e-4
 N_FRAMES = 6            # encoder frames of an encoder-decoder smoke model
 
 
-def _pair(arch, window=0):
+def _uncap(cfg):
+    if cfg.moe is not None:
+        cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=8.0))
+    return cfg
+
+
+def _pair(arch, window=0, uncap=False):
     jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
     if window:
         jcfg = replace(jcfg, sliding_window=window)
         tcfg = replace(tcfg, sliding_window=window)
+    if uncap:
+        jcfg, tcfg = _uncap(jcfg), _uncap(tcfg)
     jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     return jcfg, tcfg, jp, tp
@@ -72,14 +84,14 @@ def test_forward_prefill_decode_match_jax(arch):
     jcfg, tcfg, jp, tp = _pair(arch)
     toks = _tokens(jcfg, (2, T + 1))
     mod, off = _modality(jcfg, 2), M.prefix_len(jcfg)
-    jfull, _ = JM.forward(jp, jcfg, _jbatch(toks, mod))
+    jfull, jaux = JM.forward(jp, jcfg, _jbatch(toks, mod))
     jpre, jcaches = JM.prefill(jp, jcfg, _jbatch(toks[:, :T], mod),
                                cache_len=64)
     jdec, _ = JM.decode_step(jp, jcfg, jcaches, jnp.asarray(toks[:, T:]),
                              jnp.int32(off + T))
     tt = torch.from_numpy(toks).long()
     with torch.inference_mode():
-        tfull = M.forward(tp, tcfg, _tbatch(toks, mod))
+        tfull, taux = M.forward(tp, tcfg, _tbatch(toks, mod))
         tpre, tcaches = M.prefill(tp, tcfg, _tbatch(toks[:, :T], mod), 64)
         tdec, _ = M.decode_step(tp, tcfg, tcaches, tt[:, T:], off + T)
     assert tfull.shape == jfull.shape == \
@@ -87,6 +99,10 @@ def test_forward_prefill_decode_match_jax(arch):
     assert _err(tfull, jfull) < TOL
     assert _err(tpre, jpre) < TOL
     assert _err(tdec, jdec) < TOL
+    # the MoE aux loss (0 without MoE layers), an f32 scalar
+    assert taux.dtype == torch.float32 and taux.shape == ()
+    assert abs(float(taux) - float(jaux)) < 1e-6
+    assert (float(jaux) > 0) == (jcfg.moe is not None)
 
 
 @pytest.mark.parametrize("arch,cache_len,window,t", [
@@ -121,12 +137,12 @@ def test_prefill_caches_match_jax(arch, cache_len, window, t):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_prefill_then_decode_matches_forward(arch):
-    _, cfg, _, params = _pair(arch)
+    _, cfg, _, params = _pair(arch, uncap=True)
     toks = _tokens(cfg, (2, T + 1))
     mod, off = _modality(cfg, 2), M.prefix_len(cfg)
     tokens = torch.from_numpy(toks).long()
     with torch.inference_mode():
-        full = M.forward(params, cfg, _tbatch(toks, mod))
+        full, _ = M.forward(params, cfg, _tbatch(toks, mod))
         pre, caches = M.prefill(params, cfg, _tbatch(toks[:, :T], mod), 64)
         assert float((pre[:, 0] - full[:, off + T - 1]).abs().max()) < TOL
         dec, _ = M.decode_step(params, cfg, caches, tokens[:, T:T + 1],
@@ -138,13 +154,13 @@ def test_prefill_then_decode_matches_forward(arch):
 def test_multi_step_decode_chain(arch):
     """Three consecutive decode steps track the full forward and the JAX
     decode chain."""
-    jcfg, cfg, jp, params = _pair(arch)
+    jcfg, cfg, jp, params = _pair(arch, uncap=True)
     toks = _tokens(cfg, (2, T + 3))
     mod, off = _modality(cfg, 2), M.prefix_len(cfg)
     tokens = torch.from_numpy(toks).long()
     _, jc = JM.prefill(jp, jcfg, _jbatch(toks[:, :T], mod), cache_len=32)
     with torch.inference_mode():
-        full = M.forward(params, cfg, _tbatch(toks, mod))
+        full, _ = M.forward(params, cfg, _tbatch(toks, mod))
         _, caches = M.prefill(params, cfg, _tbatch(toks[:, :T], mod), 32)
         for i in range(3):
             p = off + T + i
@@ -166,7 +182,7 @@ def test_sliding_window_decode_matches_windowed_forward():
     _, jc = JM.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :16])},
                        cache_len=8)
     with torch.inference_mode():
-        full = M.forward(params, cfg, {"tokens": tokens})
+        full, _ = M.forward(params, cfg, {"tokens": tokens})
         _, caches = M.prefill(params, cfg, {"tokens": tokens[:, :16]}, 8)
         for i in range(4):
             dec, caches = M.decode_step(params, cfg, caches,
@@ -260,7 +276,7 @@ def test_params_from_numpy_keeps_f32_by_design_leaves():
     tcfg = replace(get_smoke_config("xlstm-1.3b"), param_dtype="bfloat16")
     tp = params_from_numpy(jp, "cpu", dtype=torch.bfloat16)   # f32 source
     with torch.inference_mode():
-        logits = M.forward(tp, tcfg, {"tokens": torch.from_numpy(
+        logits, _ = M.forward(tp, tcfg, {"tokens": torch.from_numpy(
             _tokens(tcfg, (1, 4))).long()})
     assert torch.isfinite(logits.float()).all()
 
@@ -305,6 +321,9 @@ def test_full_width_config_is_xlstm_1_3b():
     ("phi3-mini-3.8b", (32, 3072, 32, 32, 96, 8192, 32256)),
     ("llava-next-34b", (60, 7168, 56, 8, 128, 20480, 64000)),
     ("seamless-m4t-medium", (12, 1024, 16, 16, 64, 4096, 256512)),
+    ("deepseek-v2-236b", (60, 5120, 128, 128, 192, 12288, 102400)),
+    ("deepseek-v3-671b", (61, 7168, 128, 128, 192, 18432, 129536)),
+    ("jamba-1.5-large-398b", (72, 8192, 64, 8, 128, 24576, 65536)),
 ])
 def test_full_width_config(arch, dims):
     """Layers, width, heads, KV heads, head dim, d_ff and padded vocab of
@@ -338,22 +357,15 @@ def test_full_width_modality_configs():
             ["attn"]
 
 
-def test_unported_layers_raise_with_roadmap_pointer():
+def test_unknown_mixer_raises_value_error():
+    """Every mixer of the JAX package is ported; an unknown one raises
+    ValueError, as the JAX ``layer_apply`` does."""
     cfg = replace(get_smoke_config("qwen2-0.5b"), n_layers=1,
-                  stages=(StageDef((LayerDef("mamba", "dense"),), 1),))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                  stages=(StageDef((LayerDef("rwkv", "dense"),), 1),))
+    with pytest.raises(ValueError, match="rwkv"):
         M.init_params(cfg, 0, device="cpu")
-    cfg = replace(get_smoke_config("qwen2-0.5b"), n_layers=1,
-                  stages=(StageDef((LayerDef("attn", "moe"),), 1),))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        M.init_params(cfg, 0, device="cpu")
-
-
-def test_mla_mixer_raises_with_roadmap_pointer():
-    cfg = replace(get_smoke_config("qwen2-0.5b"), n_layers=1,
-                  stages=(StageDef((LayerDef("mla", "dense"),), 1),))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        M.init_params(cfg, 0, device="cpu")
+    with pytest.raises(ValueError, match="rwkv"):
+        M.init_caches(cfg, 1, 8, device="cpu")
 
 
 def test_stacked_init_equals_stack_of_layers():
@@ -364,9 +376,122 @@ def test_stacked_init_equals_stack_of_layers():
     ld = cfg.stages[0].pattern[0]
     gens = [torch.Generator().manual_seed(5) for _ in range(2)]
     got = blocks._stacked(3, lambda: blocks.layer_init(gens[0], ld, cfg,
-                                                       torch.float32))
+                                                       torch.float32),
+                          torch.device("cpu"))
     layers = [blocks.layer_init(gens[1], ld, cfg, torch.float32)
               for _ in range(3)]
     want = jax.tree.map(lambda *ls: torch.stack(ls), *layers)
     leaves = jax.tree.leaves(jax.tree.map(torch.equal, got, want))
     assert len(leaves) == 14 and all(leaves)       # cross and norm_x too
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b",
+                                  "jamba-1.5-large-398b"])
+def test_init_params_tree_matches_jax_moe_mla_mamba(arch):
+    """Same keys, shapes and dtypes as the JAX tree, leaf for leaf (the MoE
+    ``router`` and Mamba's ``a_log`` in f32 under a bf16 param dtype), and
+    the JAX distributions' scales for the expert weights (scaled in
+    place)."""
+    jcfg = replace(jax_smoke_config(arch), param_dtype="bfloat16")
+    cfg = replace(get_smoke_config(arch), param_dtype="bfloat16")
+    shapes = jax.eval_shape(lambda k: JM.init_params(jcfg, k),
+                            jax.ShapeDtypeStruct((2,), jnp.uint32))
+    tp = M.init_params(cfg, 0, device="cpu")
+
+    def walk(j, t, path=""):
+        assert set(j) == set(t), path
+        for k in j:
+            if isinstance(j[k], dict):
+                walk(j[k], t[k], f"{path}/{k}")
+            else:
+                assert tuple(t[k].shape) == j[k].shape, f"{path}/{k}"
+                assert str(t[k].dtype) == f"torch.{j[k].dtype}", f"{path}/{k}"
+
+    walk(shapes, tp)
+    moe = [layer["ffn"] for n in range(len(cfg.stages))
+           for layer in tp[f"dec{n}"].values()
+           if "router" in layer.get("ffn", {})][0]
+    assert moe["router"].dtype == torch.float32
+    for name, fan_in in (("wg", cfg.d_model), ("wd", cfg.moe.d_expert)):
+        std = float(moe[name].float().std())
+        assert abs(std - fan_in ** -0.5) < 0.05 * fan_in ** -0.5, name
+
+
+def test_params_from_numpy_keeps_router_and_a_log_f32():
+    """``router`` (MoE) and ``a_log`` (Mamba) are f32 by design in the JAX
+    tree; a dtype cast keeps them so, and casts their neighbours."""
+    jp = jax.tree.map(np.asarray, JM.init_params(
+        jax_smoke_config("jamba-1.5-large-398b"), jax.random.PRNGKey(0)))
+    tp = params_from_numpy(jp, "cpu", dtype=torch.bfloat16)
+    stage = tp["dec0"]
+    assert stage["p0"]["mixer"]["a_log"].dtype == torch.float32
+    assert stage["p1"]["ffn"]["router"].dtype == torch.float32
+    assert stage["p0"]["mixer"]["in_proj"].dtype == \
+        stage["p1"]["ffn"]["wg"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(stage["p0"]["mixer"]["a_log"].numpy(),
+                                  jp["dec0"]["p0"]["mixer"]["a_log"])
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def test_stacked_one_repeat_makes_no_copy():
+    """A one-repeat stage is the layer's own tensors viewed with a leading
+    axis of 1: every stacked leaf shares its storage with the leaf
+    ``make`` returned, so the layer is never held twice."""
+    from repro_torch.models import blocks
+    cfg = get_smoke_config("deepseek-v3-671b")
+    ld = cfg.stages[1].pattern[0]                          # MLA + MoE
+    made = []
+
+    def make():
+        made.append(blocks.layer_init(torch.Generator().manual_seed(3), ld,
+                                      cfg, torch.float32))
+        return made[-1]
+
+    got = blocks._stacked(1, make, torch.device("cpu"))
+    pairs = list(zip(_leaves(made[0]), _leaves(got), strict=True))
+    assert len(made) == 1 and len(pairs) == 17      # shared experts too
+    for layer, stacked in pairs:
+        assert stacked.shape == (1, *layer.shape)
+        assert stacked.data_ptr() == layer.data_ptr()
+        assert stacked.untyped_storage().data_ptr() == \
+            layer.untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stacked_repeats_draw_into_their_slots(monkeypatch, dtype):
+    """Several repeats: the dry run draws nothing, and every random draw of
+    every repeat lands in its slot of the stacked tensors; in f32 the draw
+    itself writes there (``torch.randn(out=slot)``), so no layer-sized
+    tensor is made beside the stack."""
+    from repro_torch.models import blocks
+    from repro_torch.models.layers import common
+    cfg = get_smoke_config("jamba-1.5-large-398b")
+    ld = cfg.stages[0].pattern[1]                          # attn + MoE
+    calls = []
+    randn = torch.randn
+
+    def spy(*args, **kw):
+        calls.append(kw.get("out"))
+        return randn(*args, **kw)
+
+    monkeypatch.setattr(common.torch, "randn", spy)
+    gen = torch.Generator().manual_seed(5)
+    got = blocks._stacked(3, lambda: blocks.layer_init(gen, ld, cfg, dtype),
+                          torch.device("cpu"))
+    monkeypatch.undo()
+    stacks = {t.untyped_storage().data_ptr() for t in _leaves(got)}
+    n_draws = 8                  # attention 4, router 1, experts 3
+    assert len(calls) == 3 * n_draws      # the dry run draws nothing
+    into = [o for o in calls if o is not None]
+    assert all(o.untyped_storage().data_ptr() in stacks for o in into)
+    # bf16 leaves are drawn in f32 and cast into their slot; the f32 router
+    # is drawn in place whatever the param dtype
+    assert len(into) == (len(calls) if dtype == torch.float32 else 3)
+    gen2 = torch.Generator().manual_seed(5)
+    layers = [blocks.layer_init(gen2, ld, cfg, dtype) for _ in range(3)]
+    want = jax.tree.map(lambda *ls: torch.stack(ls), *layers)
+    assert all(jax.tree.leaves(jax.tree.map(torch.equal, got, want)))

@@ -51,6 +51,21 @@ def xlstm_setup():
     return _setup("xlstm-1.3b")
 
 
+@pytest.fixture(scope="module")
+def deepseek_v2_setup():
+    return _setup("deepseek-v2-236b")
+
+
+@pytest.fixture(scope="module")
+def jamba_setup():
+    return _setup("jamba-1.5-large-398b")
+
+
+SETUPS = {"qwen2-0.5b": "setup", "xlstm-1.3b": "xlstm_setup",
+          "deepseek-v2-236b": "deepseek_v2_setup",
+          "jamba-1.5-large-398b": "jamba_setup"}
+
+
 def _engine(cfg, params, cost, lp_tokens=6, **kw):
     net = engine_network_config(cost, lp_tokens)
     return PreemptiveServingEngine(cfg, params, cost, device="cpu",
@@ -301,11 +316,14 @@ def _virtual(summary):
     pytest.param("qwen2-0.5b", False, 4, id="False"),
     # a few requests: 3 LP on slice 0, 3 HP that preempt, 2 offloadable LP
     pytest.param("xlstm-1.3b", True, 3, id="xlstm-1.3b-True"),
+    # MLA + MoE, and Mamba + attention + MoE (default capacity)
+    pytest.param("deepseek-v2-236b", True, 3, id="deepseek-v2-236b-True"),
+    pytest.param("jamba-1.5-large-398b", True, 3,
+                 id="jamba-1.5-large-398b-True"),
 ])
 def test_engines_agree_on_outcomes_and_metrics(request, arch, lose_work,
                                                n_lp):
-    setup = request.getfixturevalue(
-        "setup" if arch == "qwen2-0.5b" else "xlstm_setup")
+    setup = request.getfixturevalue(SETUPS[arch])
     j_out, j_sum = _run_script("jax", setup, lose_work, n_lp)
     t_out, t_sum = _run_script("torch", setup, lose_work, n_lp)
     assert t_out == j_out

@@ -333,7 +333,7 @@ def test_two_superblock_logits_match_jax():
     jlog, jc = JM.prefill(jp, jcfg, {"tokens": jnp.asarray(toks[:, :t])},
                           cache_len=32)
     with torch.inference_mode():
-        full = M.forward(tp, cfg, {"tokens": tt})
+        full, _ = M.forward(tp, cfg, {"tokens": tt})
         log, tc = M.prefill(tp, cfg, {"tokens": tt[:, :t]}, 32)
         assert _err(full, jfull) < LOGIT_TOL
         assert _err(log, jlog) < LOGIT_TOL
