@@ -71,6 +71,28 @@ first fault (the script exits 0 only if every phase passed):
              kernels' plain versions on the card and against the CPU
              (llava: at one layer and 64 patches; deepseek-v3: its dense
              layer; jamba: its Mamba layer).
+  5. train   full-width qwen2-0.5b in f32 from seed 0 trains 3 AdamW steps
+             (lr 1e-3, warmup 1, 8 total) on the synthetic Zipf stream at
+             T=4096 (the train_4k shape) and batch 1 (cut from 256), each
+             layer recomputed in the backward: loss and gradient norm
+             finite, exactly 48 flash forward and 24 flash backward
+             launches a step, step times and tokens/s, peak device
+             memory; the gradients after step 1 against the same step
+             with the flash forward and backward's plain versions on the
+             card; a checkpoint of params and optimizer state after step
+             2, restored into fresh tensors, from which step 3 must give
+             the live run's state bit for bit; 8 greedy tokens decoded
+             from the restored weights (launches exact, logits against
+             the plain attention); a ``[profile]`` breakdown of one step
+             (flash forward, each backward launch, cuBLAS, elementwise,
+             the optimizer); then 2 full-width layers at T=256 against
+             the CPU (loss, every gradient leaf, the updated params).
+             The kernels phase also holds the backward kernel against its
+             plain version (f32 and bf16, qwen2's heads at T=16, 1024 and
+             4096, deepseek-7b's at 1024, phi3-mini's D=96, MLA's D=192
+             at 16 and 1024, a window, seamless's T=1 cross-attention,
+             positions from 100) and times it beside the backward of
+             ``scaled_dot_product_attention``.
 
 The last lines are the card's name and power limit, one JSON object
 describing each kernel, and ``{"ok": true, "device": {...}}``.  Without a
@@ -81,6 +103,7 @@ from __future__ import annotations
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -93,13 +116,18 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.checkpoint import store
 from repro_torch.configs import get_config
+from repro_torch.configs.shapes import SHAPES, InputShape
+from repro_torch.data import train_batches
 from repro_torch.core.task import Priority
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_ref,
                                                  flash_attention_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.halo_conv2d import (conv_block_ref,
@@ -118,7 +146,11 @@ from repro_torch.models.layers import xlstm as X
 from repro_torch.serving.cost_model import measure_cost_model
 from repro_torch.serving.engine import (PreemptiveServingEngine,
                                         ServeRequest, engine_network_config)
-from repro_torch.training.steps import make_prefill_step, make_serve_step
+from repro_torch.training import steps as TS
+from repro_torch.training.optimizer import AdamWConfig, tree_leaves
+from repro_torch.training.steps import (init_train_state, loss_and_grads,
+                                        make_prefill_step, make_serve_step,
+                                        make_train_step)
 
 # H100 SXM, NVIDIA data sheet: HBM rate and dense peaks by input type (f32
 # outside the tensor cores, where the attention and sLSTM kernels do their
@@ -257,15 +289,16 @@ TENSOR_CORE_KERNELS = ("halo_conv2d", "flash_attention")
 
 def _instance(line: str) -> str:
     """A kernel template instance from ptxas's mangled entry name, as
-    ``<dtype, template ints>`` (flash: dtype, width class 0/1/2 for D up to
-    64/128/256, key groups)."""
+    ``name<dtype, template ints>`` (flash: dtype, width class 0/1/2 for D
+    up to 64/128/256, and the forward's key groups)."""
     found = re.search(r"_kernelI(.*?)EEv", line)
     if not found:
         return ""
     args = found.group(1).replace("13__nv_bfloat16", "bf16,")
     args = re.sub(r"^f", "f32,", args)
     args = re.sub(r"Li(\d+)E", r"\1,", args)
-    return f" <{args.rstrip(',')}>"
+    name = re.search(r"\d+([a-z_]+_kernel)I", line)
+    return f" {name.group(1) if name else ''}<{args.rstrip(',')}>"
 
 
 def phase_build() -> None:
@@ -370,6 +403,12 @@ FLASH_ROW = {"name": "flash_attention", "route": "cuda",
              "source": "repro_torch/kernels/flash_attention/csrc/"
                        "flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention/kernel.py:66"}
+# the flash kernel's backward has no TPU counterpart: the JAX train step
+# differentiates the jnp attention
+FLASH_BWD_ROW = {"name": "flash_attention_bwd", "route": "cuda",
+                 "source": "repro_torch/kernels/flash_attention/csrc/"
+                           "flash_attention_bwd.cu",
+                 "replaces": None}
 
 
 def phase_kernels() -> dict:
@@ -379,6 +418,7 @@ def phase_kernels() -> dict:
     gen.manual_seed(0)
     rows = {"decode_attention": _decode_cases(gen),
             "flash_attention": _flash_cases(gen)}
+    rows["flash_attention_bwd"] = _flash_bwd_cases(gen)
     rows["slstm_scan"] = _slstm_cases(gen)
     rows["halo_conv2d"] = _halo_cases(gen)
     return rows
@@ -606,6 +646,132 @@ def _time_flash(label: str, args, causal: bool, window: int) -> dict:
           f"{plan.n_row_tiles * plan.n_key_tiles} (per KV head and batch "
           "row)")
     return dict(timing, cold_ms=cold, library_cold_ms=lib_cold)
+
+
+def _bwd_check(label: str, got, want, dtype) -> float:
+    """dq, dk, dv against the plain backward, each relative to its largest
+    magnitude (gradients scale with the inputs): ``TOL`` of that."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"flash_attention_bwd {label}: non-finite "
+                                 f"{name}")
+        err = (g.float() - w.float()).abs().max().item()
+        rel = err / max(w.float().abs().max().item(), 1e-30)
+        worst = max(worst, rel)
+        if rel > TOL[dtype]:
+            raise AssertionError(f"flash_attention_bwd {label}: {name} "
+                                 f"error {err} ({rel:.3g} of max |{name}|)")
+    print(f"[kernels] flash_attention_bwd {label} {str(dtype)[6:]}: max "
+          f"error over dq/dk/dv {worst:.3g} of each one's max |x| (tol "
+          f"{TOL[dtype]:g})")
+    return worst
+
+
+def _event_ms(fn, calls: int = 5) -> float:
+    """Device time of one ``fn()`` between two CUDA events around
+    ``calls`` back-to-back calls, after two warm-up calls (for an autograd
+    backward, which a CUDA graph of this script's kind does not capture)."""
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _flash_bwd_cases(gen) -> dict:
+    """The backward kernel against its plain version on the card: qwen2's
+    heads at T=16, 1024 and 4096 (the train step's shape), deepseek-7b's
+    (H = KV = 32, D = 128) at T=1024, phi3-mini's D=96, MLA's (H = KV =
+    128, D=192, V zero-padded from 128) at T=16 and 1024, a window,
+    seamless's unmasked T=1 over 16 frames and positions 100..115; f32 and
+    bf16.  Each is timed (kernel and plain by CUDA-graph replay; the
+    backward of ``scaled_dot_product_attention``, the yardstick, between
+    events) beside its bound."""
+    qwen2 = dict(h=H, kv=KV, d=D)
+    mla = dict(h=128, kv=128, d=192, v_dim=128)
+    cases = [(f"T={t} causal", t, True, 0, qwen2) for t in (16, 1024, 4096)]
+    cases += [("deepseek-7b heads T=1024 causal", 1024, True, 0,
+               dict(h=32, kv=32, d=128)),
+              ("phi3-mini heads (D=96) T=16 causal", 16, True, 0,
+               dict(h=32, kv=32, d=96)),
+              ("MLA heads (D=192, V padded from 128) T=16 causal", 16, True,
+               0, mla),
+              ("MLA heads (D=192, V padded from 128) T=1024 causal", 1024,
+               True, 0, mla),
+              ("T=128 causal window=32", 128, True, 32, qwen2),
+              ("seamless heads T=1 S=16 non-causal (cross, decode)", 1,
+               False, 0, dict(h=16, kv=16, d=64, s=PROMPT_LEN)),
+              ("T=16 causal positions 100..115", 16, True, 0,
+               dict(qwen2, offset=100))]
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, t, causal, window, shape in cases:
+            q, k, v, qp, kp = args = _flash_case(t, dtype, gen, **shape)
+            out = flash_attention(*args, causal=causal, window=window)
+            d_out = torch.randn(q.shape, generator=gen,
+                                device="cuda").to(dtype)
+            bwd_args = (*args, out, d_out)
+            want = flash_attention_bwd_ref(*bwd_args, causal=causal,
+                                           window=window)
+            got = flash_attention_bwd(*bwd_args, causal=causal,
+                                      window=window)
+            err = _bwd_check(label, got, want, dtype)
+            del got, want
+            timing = _time_flash_bwd(label, bwd_args, causal, window)
+            if label == f"T={TRAIN_T} causal" and dtype == torch.float32:
+                row = dict(FLASH_BWD_ROW, max_abs_err=err, **timing)
+    return row
+
+
+def _time_flash_bwd(label: str, bwd_args, causal: bool, window: int) -> dict:
+    q, k, v, qp, kp, out, d_out = bwd_args
+    b, t, h, d = q.shape
+    mask = None
+    n_pairs = b * qp.shape[0] * kp.shape[0]
+    if causal:
+        mask = kp[None, :] <= qp[:, None]
+        if window > 0:
+            mask &= kp[None, :] > qp[:, None] - window
+        n_pairs = b * int(mask.sum())
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    lib_grad = d_out.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(lib_out, (qs, ks, vs), lib_grad,
+                                   retain_graph=True)
+
+    calls = 50 if t * kp.shape[0] <= 1024 * 1024 else 5
+    ms = device_ms(lambda: flash_attention_bwd(*bwd_args, causal=causal,
+                                               window=window), calls=calls)
+    plain = device_ms(lambda: flash_attention_bwd_ref(
+        *bwd_args, causal=causal, window=window), calls=calls)
+    lib = _event_ms(library)
+    del lib_out
+    # the backward's five products (S again, dP, dV, dK, dQ) over the
+    # valid pairs; q, k, v, out, d_out and positions read once, dq, dk, dv
+    # written once
+    n_bytes = _nbytes(q, k, v, qp, kp, out, d_out) + _nbytes(q, k, v)
+    timing = _report("flash_attention_bwd", label, q.dtype, ms, plain, lib,
+                     n_bytes, 10.0 * h * d * n_pairs)
+    plan = flash_ops.plan_flash_bwd(b, t, kp.shape[0], h, k.shape[2], d,
+                                    q.dtype)
+    print(f"[kernels] flash_attention_bwd {label} {str(q.dtype)[6:]}: plan "
+          f"{plan.rows}-row x {plan.tile_keys}-key tiles (stats, dQ) on grid "
+          f"{plan.row_grid}, {plan.keys}-key CTAs over {plan.step_rows}-row "
+          f"steps (dK/dV) on grid {plan.key_grid}, dynamic smem "
+          f"{plan.smem_bytes} B; library_ms is SDPA's backward alone "
+          "(autograd.grad between events)")
+    return timing
 
 
 SLSTM_ROW = {"name": "slstm_scan", "route": "cuda",
@@ -893,8 +1059,9 @@ def _halo_cases(gen) -> dict:
 
 
 KERNELS = {"decode_attention": decode_attention,
-           "flash_attention": flash_attention, "slstm_scan": slstm_scan,
-           "halo_conv2d": halo_conv_block_tiles}
+           "flash_attention": flash_attention,
+           "flash_attention_bwd": flash_attention_bwd,
+           "slstm_scan": slstm_scan, "halo_conv2d": halo_conv_block_tiles}
 
 
 def _n_layers(stages, mixer: str) -> int:
@@ -917,7 +1084,7 @@ def _expected_launches(cfg, prefills: int, tokens: int) -> dict[str, int]:
                 if ld.cross_attn)
     return {"decode_attention": attn * tokens,
             "flash_attention": (attn + mla + enc + cross) * prefills
-            + cross * tokens,
+            + cross * tokens, "flash_attention_bwd": 0,
             "slstm_scan": slstm * (prefills + tokens), "halo_conv2d": 0}
 
 
@@ -1411,6 +1578,370 @@ def phase_model(arch: str, keep, cpu_cut) -> None:
                        M.prefix_len(small_cfg) + CACHE_LEN, decode)
 
 
+# --------------------------------------------------------------------------- #
+# Phase 5: train qwen2-0.5b at full width                                     #
+# --------------------------------------------------------------------------- #
+
+
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_SHAPE = SHAPES["train_4k"]      # T=4096, global batch 256
+TRAIN_T = TRAIN_SHAPE.seq_len
+TRAIN_BATCH = 1                       # cut from 256: one sequence a step
+TRAIN_STEPS = 3
+TRAIN_OPT = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=8)
+TRAIN_CPU_CUT = ((0, (0,), 2),)       # card vs CPU: 2 full-width layers
+TRAIN_CPU_T = 256                     # (the CPU's 151,936-word head)
+# A gradient leaf against another run of the same step, relative to the
+# leaf's largest |g|: f32 summation order through 24 layers (kernel vs
+# plain, cuBLAS vs the CPU's BLAS); a dropped attention gradient is off by
+# about 1.
+TRAIN_GRAD_TOL = 1e-3
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "train_ckpt"
+
+
+def _grads(cfg, params: dict, batch: dict) -> tuple:
+    """(loss, gradient leaves) as the train step takes them (recompute
+    on), without the optimizer."""
+    loss, _, grads = loss_and_grads(params, cfg, batch)
+    return loss, list(tree_leaves(grads))
+
+
+def _leaf_names(tree, prefix: str = ""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaf_names(tree[k], f"{prefix}{k}/")
+        else:
+            yield prefix + k
+
+
+def _compare_grads(label: str, names, got, want) -> float:
+    """Every gradient leaf within TRAIN_GRAD_TOL of the other run, relative
+    to that leaf's largest |g|; returns the worst ratio."""
+    worst, where = 0.0, ""
+    for name, g, w in zip(names, got, want, strict=True):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: non-finite gradient {name}")
+        scale = w.float().abs().max().item()
+        ratio = (g.float() - w.to(g.device).float()).abs().max().item() / \
+            max(scale, 1e-30)
+        if ratio > worst:
+            worst, where = ratio, name
+        if ratio > TRAIN_GRAD_TOL:
+            raise AssertionError(f"{label}: gradient {name} off by {ratio:.3g}"
+                                 f" of its max |g| {scale:.3g}")
+    print(f"[train] {label}: {len(names)} gradient leaves, worst "
+          f"max|diff| / max|g| = {worst:.3g} at {where} (tol "
+          f"{TRAIN_GRAD_TOL:g})")
+    return worst
+
+
+@contextmanager
+def _plain_flash_autograd():
+    """``flash_attention``'s autograd path with the plain forward and
+    backward in place of the kernels (no launch counted)."""
+    fwd, bwd = flash_ops._forward, flash_ops.flash_attention_bwd
+    flash_ops._forward = lambda q, k, v, qp, kp, causal, window: \
+        flash_attention_ref(q, k, v, qp, kp, causal=causal, window=window)
+    flash_ops.flash_attention_bwd = flash_attention_bwd_ref
+    try:
+        yield
+    finally:
+        flash_ops._forward, flash_ops.flash_attention_bwd = fwd, bwd
+
+
+def _expected_train_launches(cfg, steps: int) -> dict[str, int]:
+    """A train step under recompute runs each attention layer's flash
+    forward twice (forward, then again in the backward) and its backward
+    once; no other kernel."""
+    attn = _n_layers(cfg.stages, "attn")
+    return {"decode_attention": 0, "flash_attention": 2 * attn * steps,
+            "flash_attention_bwd": attn * steps, "slstm_scan": 0,
+            "halo_conv2d": 0}
+
+
+def _check_metrics(tag: str, metrics: dict) -> None:
+    vals = {k: float(v) for k, v in metrics.items()}
+    if not all(torch.isfinite(torch.tensor(list(vals.values())))):
+        raise AssertionError(f"{tag}: non-finite metrics {vals}")
+    if not vals["grad_norm"] > 0:
+        raise AssertionError(f"{tag}: grad_norm {vals['grad_norm']}")
+
+
+class _OptimizerTimer:
+    """Wraps the train step's ``adamw_update`` with CUDA events, so one
+    step's optimizer device time can be read after it."""
+
+    def __init__(self):
+        self.update, self.events = TS.adamw_update, []
+
+    def __enter__(self):
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.update(*a, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+        TS.adamw_update = timed
+        return self
+
+    def __exit__(self, *exc):
+        TS.adamw_update = self.update
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+BWD_SYMBOLS = ("bwd_stats_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
+
+
+def _profile_train_step(label: str, fn) -> None:
+    """One train step under ``torch.profiler``: device time by kind (the
+    flash forward, each launch of its backward, cuBLAS products, the
+    optimizer's kernels by CUDA events, everything else elementwise)."""
+    torch.cuda.synchronize()
+    with _OptimizerTimer() as opt_timer, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        raise AssertionError(f"{label}: the profiler recorded no device time")
+    kinds: dict[str, list] = {}
+    for e in kernels:
+        key = next((s for s in BWD_SYMBOLS if s in e.key), None)
+        if key is None:
+            key = ("flash forward" if "flash_attention_kernel" in e.key else
+                   "cuBLAS products" if any(
+                       s in e.key.lower() for s in ("gemm", "gemv", "cublas",
+                                                    "cutlass"))
+                   else "elementwise, reductions, optimizer")
+        ms_n = kinds.setdefault(key, [0.0, 0])
+        ms_n[0] += e.self_device_time_total / 1e3
+        ms_n[1] += e.count
+    print(f"[profile] {label}: wall {wall_ms:.3f} ms (host-fenced, under "
+          f"the profiler), device busy {busy:.3f} ms in "
+          f"{sum(e.count for e in kernels)} kernel launches, busy share "
+          f"{busy / wall_ms:.3f}")
+    for key, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+        print(f"[profile] {label}:   {ms:10.3f} ms {100 * ms / busy:5.1f}% "
+              f"x{n:<6d} {key}")
+    print(f"[profile] {label}:   of which the optimizer (adamw_update, "
+          f"between CUDA events): {opt_timer.ms():.3f} ms")
+
+
+def _train_batches(cfg, t: int, n: int) -> list:
+    shape = InputShape(f"{TRAIN_SHAPE.name} cut", t, TRAIN_BATCH, "train")
+    stream = train_batches(cfg, shape, batch_override=TRAIN_BATCH)
+    return [next(stream) for _ in range(n)]
+
+
+def _check_card_vs_cpu(cfg) -> None:
+    """TRAIN_CPU_CUT layers at full width, T=TRAIN_CPU_T: the card's loss,
+    gradients and updated params against the CPU's from the same state."""
+    cut = _cut(cfg, TRAIN_CPU_CUT)
+    params, opt_state = init_train_state(cut, 1, TRAIN_OPT, device="cuda")
+    cpu_params = _tree_map(params, lambda v: v.detach().to("cpu", copy=True))
+    cpu_state = _tree_map(opt_state, lambda v: v.to("cpu", copy=True))
+    batch, = _train_batches(cut, TRAIN_CPU_T, 1)
+    names = list(_leaf_names(params))
+    loss, got = _grads(cut, params, batch)
+    want_loss, want = _grads(cut, cpu_params, batch)
+    print(f"[train] card vs CPU at {cut.n_layers} full-width layers, "
+          f"T={TRAIN_CPU_T}: loss {loss.item():.7f} vs "
+          f"{want_loss.item():.7f}")
+    if abs(loss.item() - want_loss.item()) > 1e-4:
+        raise AssertionError(f"card vs CPU loss {loss.item()} vs "
+                             f"{want_loss.item()}")
+    _compare_grads("card vs CPU", names, got, want)
+    del got
+    # one step on each: elements whose gradient is near 0 on one side may
+    # move by lr the other way (Adam's first step is lr x sign(g))
+    params, _, m = make_train_step(cut, TRAIN_OPT, device="cuda")(
+        params, opt_state, batch)
+    cpu_params, _, cm = make_train_step(cut, TRAIN_OPT, device="cpu")(
+        cpu_params, cpu_state, batch)
+    lr = float(cm["lr"])
+    worst, flipped, total = 0.0, 0, 0
+    for name, p, c, g in zip(names, tree_leaves(params),
+                             tree_leaves(cpu_params), want, strict=True):
+        diff = (p.detach().cpu() - c.detach()).abs()
+        tiny = g.abs() <= TRAIN_GRAD_TOL * g.abs().max()
+        worst = max(worst, diff[~tiny].max().item() if (~tiny).any() else 0)
+        flipped += int((diff > 1e-5).sum())
+        total += diff.numel()
+        if diff.max().item() > 2 * lr + 1e-5:
+            raise AssertionError(f"card vs CPU update: {name} moved apart "
+                                 f"by {diff.max().item()}")
+    print(f"[train] card vs CPU after one step (lr {lr:.3g}): params "
+          f"within {worst:.3g} where |g| > {TRAIN_GRAD_TOL:g} max|g|; "
+          f"{flipped} of {total} elements apart by more than 1e-5 (all "
+          f"within 2 lr); grad_norm {float(m['grad_norm']):.7f} vs "
+          f"{float(cm['grad_norm']):.7f}")
+    if worst > 1e-5:
+        raise AssertionError(f"card vs CPU update differs by {worst}")
+
+
+def phase_train() -> dict[str, int]:
+    """Full-width qwen2-0.5b trains TRAIN_STEPS steps at T=4096 (batch 1),
+    recompute on: exact launches, finite loss and gradients, peak memory;
+    its gradients after step 1 against the plain flash forward/backward on
+    the card; a checkpoint after step 2 restored and step 3 run from the
+    live and the restored state, bit for bit; 8 greedy tokens decoded from
+    the restored weights; then 2 layers at T=256 against the CPU.  Returns
+    the launches of the TRAIN_STEPS steps."""
+    cfg = get_config(TRAIN_ARCH)
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt_state = init_train_state(cfg, 0, TRAIN_OPT, device="cuda")
+    names = list(_leaf_names(params))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    torch.cuda.synchronize()
+    print(f"[train] {TRAIN_ARCH}: {cfg.n_layers} layers, d={cfg.d_model} "
+          f"H={cfg.n_heads} KV={cfg.n_kv_heads} D={cfg.resolved_head_dim}, "
+          f"{n_params} params ({cfg.param_dtype}, AdamW moments in "
+          f"{TRAIN_OPT.moment_dtype}) initialised in "
+          f"{time.perf_counter() - t0:.2f} s; {TRAIN_SHAPE.name} shape "
+          f"T={TRAIN_T} at batch {TRAIN_BATCH} (cut from "
+          f"{TRAIN_SHAPE.global_batch}); {TRAIN_OPT}")
+    batches = _train_batches(cfg, TRAIN_T, TRAIN_STEPS)
+    step = make_train_step(cfg, TRAIN_OPT, device="cuda")
+    _reset_launches()
+    total = {name: 0 for name in KERNELS}
+    live = None
+    for i, batch in enumerate(batches, 1):
+        if i == TRAIN_STEPS:
+            live = _save_and_restore(params, opt_state)
+        before = _launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        launches = {k: v - before[k] for k, v in _launches().items()}
+        for k, v in launches.items():
+            total[k] += v
+        _check_metrics(f"step {i}", metrics)
+        print(f"[train] step {i}: loss {float(metrics['loss']):.6f} grad_norm "
+              f"{float(metrics['grad_norm']):.6f} lr "
+              f"{float(metrics['lr']):.6g}; {1e3 * dt:.3f} ms host-fenced, "
+              f"{TRAIN_BATCH * TRAIN_T / dt:.1f} tokens/s; launches "
+              + ", ".join(f"{k}={v}" for k, v in launches.items()))
+        if launches != _expected_train_launches(cfg, 1):
+            raise AssertionError(f"step {i} launches {launches}")
+        if i == 1:
+            _check_against_plain(cfg, params, batches[1], names)
+    _peak_memory("[train]", TRAIN_ARCH, f"init and {TRAIN_STEPS} steps")
+    # step 3 again from the restored state: bit for bit
+    r_params, r_state = live
+    _decode_from(cfg, r_params, batches[0])
+    _profile_train_step(f"{TRAIN_ARCH} train step T={TRAIN_T}",
+                        lambda: step(r_params, r_state, batches[-1]))
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves({"p": params, "s": opt_state}),
+        tree_leaves({"p": r_params, "s": r_state}), strict=True))
+    gap = max((a.float() - b.float()).abs().max().item() for a, b in zip(
+        tree_leaves(params), tree_leaves(r_params), strict=True))
+    print(f"[train] step {TRAIN_STEPS} from the restored checkpoint vs from "
+          f"the live state: params and optimizer state bit-identical: "
+          f"{same} (largest param gap {gap:.3g})")
+    if not same:
+        raise AssertionError(f"resume not bit-identical: gap {gap}")
+    del params, opt_state, r_params, r_state, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check_card_vs_cpu(cfg)
+    return total
+
+
+def _save_and_restore(params: dict, opt_state: dict) -> tuple:
+    """The state saved to CKPT_DIR and restored into fresh tensors."""
+    state = {"params": params, "opt_state": opt_state}
+    t0 = time.perf_counter()
+    store.save(str(CKPT_DIR), state, {"arch": TRAIN_ARCH})
+    t1 = time.perf_counter()
+    back = store.restore(str(CKPT_DIR), state)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n_bytes = sum(p.numel() * p.element_size() for p in tree_leaves(state))
+    if any(a.data_ptr() == b.data_ptr() for a, b in zip(
+            tree_leaves(state), tree_leaves(back))):
+        raise AssertionError("restore returned the live tensors")
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(state),
+                                                  tree_leaves(back)))
+    print(f"[train] checkpoint after step {TRAIN_STEPS - 1}: "
+          f"{n_bytes / 1e9:.2f} GB saved in {t1 - t0:.2f} s, restored in "
+          f"{t2 - t1:.2f} s; restored equal to the live state: {same}")
+    if not same:
+        raise AssertionError("restored state differs from the saved one")
+    shutil.rmtree(CKPT_DIR)
+    return back["params"], back["opt_state"]
+
+
+def _check_against_plain(cfg, params: dict, batch: dict, names) -> None:
+    """The gradients at this state with the kernels against those with the
+    plain flash forward and backward on the card."""
+    before = _launches()
+    loss, got = _grads(cfg, params, batch)
+    after = _launches()
+    with _plain_flash_autograd():
+        want_loss, want = _grads(cfg, params, batch)
+    if _launches() != after or after == before:
+        raise AssertionError("the plain run launched a kernel, or the "
+                             "kernel run none")
+    print(f"[train] gradients after step 1, kernels vs plain flash on the "
+          f"card: loss {loss.item():.7f} vs {want_loss.item():.7f}")
+    _compare_grads("kernels vs plain flash on the card", names, got, want)
+    _reset_from(before)
+
+
+def _reset_from(counts: dict) -> None:
+    for name, fn in KERNELS.items():
+        fn.launches = counts[name]
+
+
+def _decode_from(cfg, params: dict, batch: dict) -> None:
+    """8 greedy tokens after a 16-token prompt with the prefill and serve
+    steps, exact launches, and the logits against the plain attention on
+    the card."""
+    prompt = {"tokens": torch.as_tensor(batch["tokens"][:, :PROMPT_LEN],
+                                        dtype=torch.long)}
+    before = _launches()
+    pre = make_prefill_step(cfg, CACHE_LEN, device="cuda")
+    srv = make_serve_step(cfg, device="cuda")
+    tok, caches = pre(params, prompt)
+    out = [int(tok[0])]
+    tok = tok[:, None]
+    for i in range(MODEL_TOKENS):
+        tok, caches = srv(params, caches, tok, PROMPT_LEN + i)
+        out.append(int(tok[0, 0]))
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in _launches().items()}
+    print(f"[train] greedy decode from the restored weights: {out}; "
+          "launches " + ", ".join(f"{k}={v}" for k, v in launches.items()))
+    if launches != _expected_launches(cfg, 1, MODEL_TOKENS):
+        raise AssertionError(f"decode launches {launches}")
+    if not all(0 <= t < cfg.vocab_size for t in out):
+        raise AssertionError(f"decoded tokens out of range: {out}")
+    decode = torch.as_tensor([out[:-1]])
+    with torch.inference_mode():
+        got = _logits(cfg, params, prompt, "cuda", decode=decode)
+        with _plain_attention():
+            want = _logits(cfg, params, prompt, "cuda", decode=decode)
+    _compare_logits("[train]", f"{cfg.name} restored weights, kernels vs "
+                    "plain on the card", got, want)
+    if [int(g[0, -1, :cfg.vocab_size].argmax()) for g in got] != out:
+        raise AssertionError("greedy tokens disagree with the logits")
+    _reset_from(before)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1444,6 +1975,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         print(f"[time] model {arch}: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    # the backward's launches are those of the train steps
+    launches["flash_attention_bwd"] = phase_train()["flash_attention_bwd"]
+    print(f"[time] train {TRAIN_ARCH}: {time.perf_counter() - t1:.1f} s")
     print(f"[time] total: {time.perf_counter() - t0:.1f} s")
     kernels = [dict({"launches": launches.get(name, 0)}, **rows[name])
                for name in sorted(rows)]

@@ -1,0 +1,27 @@
+"""The four assigned input shapes.
+
+Decode shapes lower ``serve_step`` (ONE new token against a KV/state cache of
+``seq_len``), not ``train_step``.  ``long_500k`` requires sub-quadratic
+attention: SSM/hybrid archs run natively; attention archs run a
+sliding-window KV-cache variant (window = cfg.long_context_window) — see
+DESIGN.md §8.2 (Shape/skip policy).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

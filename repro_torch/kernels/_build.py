@@ -102,8 +102,10 @@ def build(names) -> dict[str, str]:
 
 
 def all_kernels() -> list[str]:
-    return sorted(p.parent.parent.name
-                  for p in KERNELS_DIR.glob("*/csrc/*.cu"))
+    """Kernel packages with sources (one library each, however many
+    ``.cu`` files it has)."""
+    return sorted({p.parent.parent.name
+                   for p in KERNELS_DIR.glob("*/csrc/*.cu")})
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -120,6 +122,19 @@ def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch: "
                            f"cudaError {err}")
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise for a kernel without a backward when grad mode is on and an
+    input off the CPU requires grad: its output would carry no gradient,
+    and the graph would be cut without a word.  CPU tensors take the plain
+    version, which autograd differentiates."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad and t.device.type != "cpu" for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward yet; it cannot run "
+            "on inputs that require grad (its output would drop the "
+            "gradient)")
 
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -2,7 +2,8 @@
 
 CPU tensors take the plain version; CUDA tensors launch the kernel or
 raise.  ``decode_attention.launches`` counts kernel launches: one per call,
-the cross-chunk combine included.
+the cross-chunk combine included.  The kernel has no backward: on inputs
+off the CPU that require grad (grad mode on) the wrapper raises.
 
 The kernel cuts the cache's S slots into ``n_split`` chunks, one CTA each,
 and its last CTA per (batch, KV head) merges their partials from an f32
@@ -96,6 +97,7 @@ def decode_attention(
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, positions, pos,
                                     window=window)
+    _build.refuse_grad(NAME, q, k_cache, v_cache)
     b, h, d = q.shape
     _, s, kv, _ = k_cache.shape
     _build.check_inputs(

@@ -1,6 +1,9 @@
-"""Blocked online-softmax (flash) attention: CUDA kernel, wrapper, plain
-version."""
-from .ops import flash_attention
-from .ref import flash_attention_ref, gqa_attention_ref
+"""Blocked online-softmax (flash) attention: CUDA kernels (forward and
+backward), wrappers, plain versions."""
+from .ops import FlashAttentionFn, flash_attention, flash_attention_bwd
+from .ref import flash_attention_bwd_ref, flash_attention_ref, \
+    gqa_attention_ref
 
-__all__ = ["flash_attention", "flash_attention_ref", "gqa_attention_ref"]
+__all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_ref", "flash_attention_ref",
+           "gqa_attention_ref"]

@@ -1,7 +1,12 @@
-"""Wrapper of the flash attention kernel (``csrc/flash_attention.cu``).
+"""Wrappers of the flash attention kernel (``csrc/flash_attention.cu``)
+and of its backward (``csrc/flash_attention_bwd.cu``).
 
-CPU tensors take the plain version; CUDA tensors launch the kernel or
-raise.  ``flash_attention.launches`` counts kernel launches.
+CPU tensors take the plain versions; CUDA tensors launch the kernels or
+raise.  ``flash_attention.launches`` counts forward launches,
+``flash_attention_bwd.launches`` backward calls (three kernels each).
+Where grad mode is on and an input requires grad, ``flash_attention``
+runs through :class:`FlashAttentionFn`, whose backward is the backward
+kernel (the plain backward for CPU tensors); otherwise nothing is saved.
 
 The kernel folds each GQA group into the rows of one CTA: KV head ``kvh``
 has M = G x T rows, row r being query head ``kvh * G + r // T`` at token
@@ -23,7 +28,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from .. import _build
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 NAME = "flash_attention"
 SM_COUNT = 132              # H100 SXM
@@ -42,6 +47,17 @@ PASSES = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
 # flash_attention_launch: q, k, v, q_pos, k_pos, out; B, T, S, H, KV, D,
 # causal, window, dtype, rows, ks, smem; stream
 ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+# The backward (flash_attention_bwd.cu): threads a CTA; by width class the
+# (query rows a CTA, keys a K tile) of the stats and dQ kernels (kRowBM,
+# kRowBN) and the (keys a CTA, query rows a step) of the dK/dV kernel
+# (kKeyBN, kKeyBM).
+BWD_THREADS = 256
+BWD_ROW_TILES = ((64, 64), (64, 64), (32, 32))
+BWD_KEY_TILES = ((32, 64), (32, 64), (32, 32))
+# flash_attention_bwd_launch: q, k, v, q_pos, k_pos, out, d_out, dq, dk, dv,
+# lse, delta; B, T, S, H, KV, D, causal, window, dtype, smem x 3; stream
+BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + \
+    [ctypes.c_void_p]
 
 _lib_fns = None
 _set_up: set[int] = set()                  # devices whose limits are set
@@ -177,10 +193,14 @@ def _lib():
         launch = lib.flash_attention_launch
         launch.argtypes = ARGTYPES
         launch.restype = ctypes.c_int
-        setup = lib.flash_attention_setup
-        setup.argtypes = []
-        setup.restype = ctypes.c_int
-        _lib_fns = (launch, setup)
+        bwd = lib.flash_attention_bwd_launch
+        bwd.argtypes = BWD_ARGTYPES
+        bwd.restype = ctypes.c_int
+        setups = (lib.flash_attention_setup, lib.flash_attention_bwd_setup)
+        for setup in setups:
+            setup.argtypes = []
+            setup.restype = ctypes.c_int
+        _lib_fns = (launch, setups, bwd)
     return _lib_fns
 
 
@@ -195,21 +215,15 @@ def _set_limits(device: torch.device) -> None:
         raise RuntimeError(f"{NAME}: call once on cuda:{idx} outside "
                            "CUDA-graph capture before capturing")
     with torch.cuda.device(idx):
-        _build.check(_lib()[1](), NAME)
+        for setup in _lib()[1]:
+            _build.check(setup(), NAME)
     _set_up.add(idx)
 
 
-def flash_attention(
-    q: torch.Tensor,            # [B, T, H, D]
-    k: torch.Tensor,            # [B, S, KV, D]
-    v: torch.Tensor,
-    q_pos: torch.Tensor,        # [T] int32 absolute positions
-    k_pos: torch.Tensor,        # [S] int32
-    *,
-    causal: bool = True,
-    window: int = 0,
-) -> torch.Tensor:
-    """Full-sequence GQA attention in the model's layout -> [B, T, H, D]."""
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+             window: int) -> torch.Tensor:
+    """The plain version for CPU tensors; else one launch of the kernel."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
                                    window=window)
@@ -236,4 +250,146 @@ def flash_attention(
     return out
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with its backward kernel as the gradient: the
+    forward saves q, k, v, the positions and the output; the backward
+    launches :func:`flash_attention_bwd` (its plain version for CPU
+    tensors).  Positions, mask and window get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal: bool, window: int):
+        out = _forward(q, k, v, q_pos, k_pos, causal, window)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, q_pos, k_pos, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, q_pos, k_pos, out,
+                                         d_out.contiguous(),
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,            # [B, T, H, D]
+    k: torch.Tensor,            # [B, S, KV, D]
+    v: torch.Tensor,
+    q_pos: torch.Tensor,        # [T] int32 absolute positions
+    k_pos: torch.Tensor,        # [S] int32
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """Full-sequence GQA attention in the model's layout -> [B, T, H, D];
+    differentiable through :class:`FlashAttentionFn` where an input
+    requires grad."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, q_pos, k_pos, bool(causal),
+                                      int(window))
+    return _forward(q, k, v, q_pos, k_pos, causal, window)
+
+
 flash_attention.launches = 0
+
+
+class FlashBwdPlan(NamedTuple):
+    d_class: int                    # D padded up to the kernel's width class
+    rows: int                       # query rows a CTA of the stats/dQ kernels
+    tile_keys: int                  # keys a K tile of their walk
+    keys: int                       # keys a CTA of the dK/dV kernel
+    step_rows: int                  # query rows a step of its walk
+    row_grid: tuple[int, int, int]  # (KV x B, ceil(M / rows), 1)
+    key_grid: tuple[int, int, int]  # (KV x B, ceil(S / keys), 1)
+    smem_bytes: tuple[int, int, int]  # stats, dK/dV, dQ kernels
+
+
+def bwd_smem_bytes(d_class: int, rows: int, tile_keys: int, keys: int,
+                   step_rows: int) -> tuple[int, int, int]:
+    """Dynamic shared memory of the stats, dK/dV and dQ kernels: f32 tiles
+    of rows (d_class + 1) floats apart, P/dS tiles of (tile + 16) floats,
+    row offsets (8 B), positions and statistics (4 B each) and a 64-byte
+    reduction scratch (``Geo`` in the kernel).  The same for both dtypes:
+    tiles are held in f32."""
+    ld, red = (d_class + 1) * 4, 64
+    stats = (rows + tile_keys) * ld + rows * 12 + tile_keys * 4 + red
+    dkdv = (2 * (keys + step_rows) * ld + 2 * keys * (step_rows + 16) * 4
+            + step_rows * 20 + keys * 4 + red)
+    dq = (2 * (rows + tile_keys) * ld + rows * (tile_keys + 16) * 4
+          + rows * 20 + tile_keys * 4 + red)
+    return stats, dkdv, dq
+
+
+@functools.lru_cache(maxsize=256)
+def plan_flash_bwd(b: int, t: int, s: int, h: int, kv: int, d: int,
+                   dtype: torch.dtype) -> FlashBwdPlan:
+    """The backward's tiles and grids: by width class only (the tables
+    ``BWD_ROW_TILES`` and ``BWD_KEY_TILES``, the kernel's), whatever the
+    dtype."""
+    if dtype not in TILE_KEYS:
+        raise ValueError(f"{NAME}: dtype {dtype} not supported")
+    if min(b, t, s, h, kv, d) < 1 or h % kv:
+        raise ValueError(f"{NAME}: no backward plan for B={b} T={t} S={s} "
+                         f"H={h} KV={kv} D={d}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{NAME}: head dim {d} outside 1..{MAX_HEAD_DIM}")
+    c = next(i for i, dc in enumerate(D_CLASSES) if d <= dc)
+    rows, tile_keys = BWD_ROW_TILES[c]
+    keys, step_rows = BWD_KEY_TILES[c]
+    n_rt, n_kt = -(-(h // kv * t) // rows), -(-s // keys)
+    if max(n_rt, n_kt) > 65535:
+        raise ValueError(f"{NAME}: backward grid of {n_rt} row tiles and "
+                         f"{n_kt} key tiles, over 65535")
+    return FlashBwdPlan(D_CLASSES[c], rows, tile_keys, keys, step_rows,
+                        (kv * b, n_rt, 1), (kv * b, n_kt, 1),
+                        bwd_smem_bytes(D_CLASSES[c], rows, tile_keys, keys,
+                                       step_rows))
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    q_pos: torch.Tensor, k_pos: torch.Tensor,
+    out: torch.Tensor,          # [B, T, H, D] the forward's output
+    d_out: torch.Tensor,        # [B, T, H, D]
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention`: the plain version for CPU
+    tensors; else the three launches of the backward kernel (row
+    statistics, dK/dV, dQ) into fresh outputs of the inputs' dtype."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, q_pos, k_pos, out, d_out,
+                                       causal=causal, window=window)
+    b, t, h, d = q.shape
+    _, s, kv, _ = k.shape
+    _build.check_inputs(
+        NAME, (q, k, v, out, d_out), (q_pos, k_pos),
+        shapes_ok=(k.shape == (b, s, kv, d) and v.shape == k.shape
+                   and out.shape == q.shape and d_out.shape == q.shape
+                   and q_pos.shape == (t,) and k_pos.shape == (s,)
+                   and h % kv == 0),
+        head_dim=d, max_head_dim=MAX_HEAD_DIM)
+    plan = plan_flash_bwd(b, t, s, h, kv, d, q.dtype)
+    _set_limits(q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        err = _lib()[2](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            k_pos.data_ptr(), out.data_ptr(), d_out.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), b, t, s, h, kv, d, int(bool(causal)),
+            int(window), _build.DTYPE_CODES[q.dtype], *plan.smem_bytes,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, NAME)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -87,7 +87,8 @@ CASES = (  # (label, T, H, KV, D)
 
 
 def instrumented_source() -> str:
-    src = _build.sources(ops.NAME)[0].read_text()
+    src = next(p for p in _build.sources(ops.NAME)
+               if p.name == "flash_attention.cu").read_text()
     for plain, timed in MARKERS:
         if src.count(plain) != 1:
             raise RuntimeError(f"phase marker not found once in the kernel: "

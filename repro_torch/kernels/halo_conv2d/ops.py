@@ -5,7 +5,8 @@ per-tile conv kernel, reassembly.
 ``halo_conv_block(x, weights, tiles=(2, 2))`` equals ``conv_block_ref`` for
 any tiling; the tile count is the paper's 2-core / 4-core configuration.
 CPU tensors take the plain version; CUDA tensors launch the kernel (one
-launch per 3x3 layer) or raise.  The kernel multiplies bf16 planes on the
+launch per 3x3 layer) or raise, also where they require grad (the kernel
+has no backward).  The kernel multiplies bf16 planes on the
 tensor cores: an f32 operand is split into three exact bf16 pieces, by the
 split kernel of the same source for the first layer's input and the
 weights, and by the previous layer's epilogue between layers
@@ -146,6 +147,7 @@ def halo_conv_block_tiles(
                          f"{tile_h}x{tile_w} padded by {n_layers}")
     if tiles.device.type == "cpu":
         return halo_conv_block_tiles_ref(tiles, weights, leaky=leaky)
+    _build.refuse_grad(NAME, tiles, *weights)
     chans = [cin] + [w.shape[-1] for w in weights]
     _build.check_inputs(
         NAME, (tiles, *weights),

@@ -1,7 +1,9 @@
 """Wrapper of the sLSTM scan kernel (``csrc/slstm_scan.cu``).
 
 CPU tensors take the plain version; CUDA tensors launch the kernel or
-raise.  ``slstm_scan.launches`` counts kernel launches.
+raise.  ``slstm_scan.launches`` counts kernel launches.  The kernel has no
+backward yet: on inputs off the CPU that require grad (grad mode on) the
+wrapper raises, so xLSTM trains on the CPU only.
 
 The kernel runs one thread-block cluster per (head, batch row): its CTAs
 split the state columns, and exchange h once a step in distributed shared
@@ -171,6 +173,7 @@ def slstm_scan(
     ``n_cta`` overrides the plan's cluster size on the card."""
     if wx.device.type == "cpu":
         return slstm_scan_ref(wx, r, b, state, out_state=out_state)
+    _build.refuse_grad(NAME, wx, r, b, *(state or ()))
     bsz, t, four, heads, dh = wx.shape
     b = b.float().contiguous()
     outs = tuple(out_state) if out_state is not None else tuple(

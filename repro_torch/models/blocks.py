@@ -18,6 +18,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import LayerDef, ModelConfig, StageDef
 from .layers import attention, ffn, mamba, mla, xlstm
@@ -236,14 +237,29 @@ def stage_apply(
     x: torch.Tensor,
     ctx: LayerCtx,
     caches: Optional[dict] = None,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, Optional[dict], torch.Tensor | float]:
     """Loop over stage.repeats; inside, the (short) pattern.  Returns
-    (x, caches, summed aux loss); given caches are written in place."""
-    aux = 0.0
-    for r in range(stage.repeats):
+    (x, caches, summed aux loss); given caches are written in place.
+
+    ``remat``: each repeat's body runs under ``torch.utils.checkpoint``
+    (non-reentrant), as the JAX stage wraps its scan body in
+    ``jax.checkpoint``: the backward recomputes the repeat's activations
+    from its input instead of keeping them."""
+    def body(x, r):
+        aux = 0.0
         for i, ld in enumerate(stage.pattern):
             c = take_layer(caches[f"p{i}"], r) if caches is not None else None
             x, _, a = layer_apply(take_layer(params[f"p{i}"], r), ld, x, ctx,
                                   c)
             aux = aux + a
+        return x, aux
+
+    aux = 0.0
+    for r in range(stage.repeats):
+        if remat:
+            x, a = checkpoint(body, x, r, use_reentrant=False)
+        else:
+            x, a = body(x, r)
+        aux = aux + a
     return x, caches, aux

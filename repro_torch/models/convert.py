@@ -58,3 +58,11 @@ def caches_from_numpy(tree: dict, device: str | torch.device) -> dict:
     on ``device`` in their own dtypes."""
     dev = torch.device(device)
     return _map(tree, lambda a: _tensor(a).to(dev))
+
+
+def opt_state_from_numpy(tree: dict, device: str | torch.device) -> dict:
+    """The JAX optimizer state as numpy ({"m", "v": trees like the params,
+    in the moment dtype; "step": int32 scalar}) -> tensors on ``device``,
+    key for key, each in its own dtype."""
+    dev = torch.device(device)
+    return _map(tree, lambda a: _tensor(a).to(dev))

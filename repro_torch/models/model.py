@@ -106,8 +106,8 @@ def _positions(t: int, device: torch.device) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 
 
-def encode(params: Params, cfg: ModelConfig,
-           enc_input: torch.Tensor) -> torch.Tensor:
+def encode(params: Params, cfg: ModelConfig, enc_input: torch.Tensor, *,
+           remat: bool = False) -> torch.Tensor:
     """enc_input [B, S, d] (projected frame embeddings) -> the normed
     encoder output: unmasked self-attention with RoPE at 0..S-1."""
     ctx = LayerCtx(cfg=cfg, positions=_positions(enc_input.shape[1],
@@ -115,15 +115,17 @@ def encode(params: Params, cfg: ModelConfig,
                    causal=False)
     x = enc_input
     for i, st in enumerate(cfg.encoder_stages):
-        x, _, _ = stage_apply(params[f"enc{i}"], st, x, ctx)
+        x, _, _ = stage_apply(params[f"enc{i}"], st, x, ctx, remat=remat)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
-def _encoder_output(params: Params, cfg: ModelConfig, batch: dict):
+def _encoder_output(params: Params, cfg: ModelConfig, batch: dict, *,
+                    remat: bool = False):
     if not cfg.is_encoder_decoder:
         return None
     return encode(params, cfg, project_modality(params,
-                                                batch["modality_emb"]))
+                                                batch["modality_emb"]),
+                  remat=remat)
 
 
 def prefix_len(cfg: ModelConfig) -> int:
@@ -151,19 +153,23 @@ def _decoder_input(params: Params, cfg: ModelConfig,
 # --------------------------------------------------------------------------- #
 
 
-def forward(params: Params, cfg: ModelConfig,
-            batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Params, cfg: ModelConfig, batch: dict, *,
+            remat: bool = False,
+            moe_group_size: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
     """batch {"tokens": [B, T_text] int, "modality_emb": [B, S_mod,
     modality_dim] (modality models)} -> (logits [B, T, padded_vocab], T
     counting a decoder-only model's modality positions; the MoE layers'
-    summed aux loss, an f32 scalar, 0 without MoE)."""
-    enc_out = _encoder_output(params, cfg, batch)
+    summed aux loss, an f32 scalar, 0 without MoE).  ``remat`` recomputes
+    each layer repeat in the backward (the train step's default);
+    ``moe_group_size`` is the MoE layers' dispatch group."""
+    enc_out = _encoder_output(params, cfg, batch, remat=remat)
     x = _decoder_input(params, cfg, batch)
     ctx = LayerCtx(cfg=cfg, positions=_positions(x.shape[1], x.device),
-                   causal=True, window=cfg.sliding_window, enc_out=enc_out)
+                   causal=True, window=cfg.sliding_window, enc_out=enc_out,
+                   moe_group_size=moe_group_size)
     aux = 0.0
     for i, st in enumerate(cfg.stages):
-        x, _, a = stage_apply(params[f"dec{i}"], st, x, ctx)
+        x, _, a = stage_apply(params[f"dec{i}"], st, x, ctx, remat=remat)
         aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params, cfg, x), torch.as_tensor(

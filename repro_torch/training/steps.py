@@ -1,19 +1,113 @@
-"""Step factories: prefill_step and serve_step (port of the JAX package's
-``training/steps.py``; the train step waits for its ROADMAP item).
+"""Step factories: train_step / prefill_step / serve_step (port of the JAX
+package's ``training/steps.py``).
 
-Each factory resolves its device once; the returned step runs under
-``torch.inference_mode()`` and greedy-decodes over the real vocabulary
-(``[:vocab_size]`` of the padded one).
+Each factory resolves its device once.  The train step differentiates
+``loss_fn`` with ``torch.autograd.grad`` (attention through the flash
+kernel's backward on the card) and applies AdamW in place.  The prefill
+and serve steps run under ``torch.inference_mode()`` and greedy-decode
+over the real vocabulary (``[:vocab_size]`` of the padded one).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from ..device import resolve_device
 from ..models import model as M
 from ..models.config import ModelConfig
+from .optimizer import AdamWConfig, adamw_update, init_opt_state, \
+    tree_leaves
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """Mean next-token CE; positions with label < 0 are masked.  Padded
+    vocab tail can never be a label (labels < vocab_size), so no extra
+    masking of logits is needed for the loss.  Log-sum-exp in f32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((logz - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            remat: bool = True,
+            moe_group_size: int = 256) -> tuple[torch.Tensor, dict]:
+    """CE over the text positions (a decoder-only modality model prepends
+    its modality positions, which carry no label) plus the MoE aux loss ->
+    (loss, {"ce", "aux"})."""
+    logits, aux = M.forward(params, cfg, batch, remat=remat,
+                            moe_group_size=moe_group_size)
+    t_text = batch["labels"].shape[1]
+    ce = cross_entropy(logits[:, -t_text:, :], batch["labels"],
+                       cfg.vocab_size)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def loss_and_grads(params: dict, cfg: ModelConfig, batch: dict, *,
+                   remat: bool = True, moe_group_size: int = 256
+                   ) -> tuple[torch.Tensor, dict, dict]:
+    """(loss, {"ce", "aux"}, grads): :func:`loss_fn` on ``batch`` (numpy
+    arrays or tensors, moved to the params' device, ids as int64) and its
+    gradient with respect to every param leaf, as a tree like ``params``.
+    The leaves are made to require grad; the returned values are
+    detached."""
+    leaves = list(tree_leaves(params))
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    batch = {k: (v if v.is_floating_point() else v.long()).to(
+        leaves[0].device) for k, v in batch.items()}
+    for p in leaves:
+        p.requires_grad_(True)
+    with torch.enable_grad():
+        loss, parts = loss_fn(params, cfg, batch, remat=remat,
+                              moe_group_size=moe_group_size)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), {k: v.detach() for k, v in parts.items()}, \
+        _tree_like(params, iter(grads))
+
+
+def _tree_like(tree: dict, leaves) -> dict:
+    """A tree of ``tree``'s structure holding ``leaves`` in its flatten
+    order (sorted keys)."""
+    return {k: _tree_like(tree[k], leaves) if isinstance(tree[k], dict)
+            else next(leaves) for k in sorted(tree)}
+
+
+def make_train_step(cfg: ModelConfig, opt: Optional[AdamWConfig] = None, *,
+                    remat: bool = True, moe_group_size: int = 256,
+                    device: str | torch.device = "cuda") -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "ce", "aux", "grad_norm", "lr"})``: :func:`loss_and_grads`,
+    then one AdamW step in place (the same dicts come back; metrics are
+    device scalars).  ``batch`` holds numpy arrays or tensors
+    (``train_batches`` gives numpy); params and optimizer state live on
+    ``device``."""
+    opt = opt or AdamWConfig()
+    resolve_device(device)
+
+    def train_step(params, opt_state, batch):
+        loss, parts, grads = loss_and_grads(params, cfg, batch, remat=remat,
+                                            moe_group_size=moe_group_size)
+        params, opt_state, om = adamw_update(opt, params, grads, opt_state)
+        return params, opt_state, {"loss": loss, **parts, **om}
+
+    return train_step
+
+
+def init_train_state(cfg: ModelConfig, seed: int = 0,
+                     opt: Optional[AdamWConfig] = None, *,
+                     device: str | torch.device = "cuda"
+                     ) -> tuple[dict, dict]:
+    """Random params from ``seed`` (leaves that require grad) and a zero
+    optimizer state."""
+    opt = opt or AdamWConfig()
+    params = M.init_params(cfg, seed, device=device)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    return params, init_opt_state(opt, params)
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int, *,

@@ -1,7 +1,8 @@
 """Boundary of the PyTorch port (``repro_torch``): its copies of the
 jax-free modules stay verbatim, it imports neither JAX nor the JAX package,
-and its entry points refuse to run on a missing card instead of falling
-back to the CPU."""
+its entry points refuse to run on a missing card instead of falling
+back to the CPU, and no kernel wrapper returns a result that silently
+drops the gradient."""
 import ast
 import subprocess
 import sys
@@ -14,13 +15,15 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.halo_conv2d import halo_conv_block_tiles
 from repro_torch.kernels.slstm_scan import slstm_scan
 from repro_torch.models import model as M
 from repro_torch.serving.cost_model import CostModel, PhaseCost, \
     measure_cost_model
 from repro_torch.serving.engine import PreemptiveServingEngine
-from repro_torch.training.steps import make_prefill_step, make_serve_step
+from repro_torch.training.steps import init_train_state, \
+    make_prefill_step, make_serve_step, make_train_step
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "repro_torch"
@@ -32,7 +35,7 @@ COPIES = [f"core/{n}.py" for n in (
     "configs/deepseek_7b.py", "configs/phi3_mini_3_8b.py",
     "configs/llava_next_34b.py", "configs/seamless_m4t_medium.py",
     "configs/deepseek_v2_236b.py", "configs/deepseek_v3_671b.py",
-    "configs/jamba_1_5_large_398b.py"]
+    "configs/jamba_1_5_large_398b.py", "configs/shapes.py"]
 PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
@@ -86,8 +89,23 @@ def test_import_check_covers_every_kernel_package():
             assert PORT / "kernels" / name / f"{mod}.py" in PORT_FILES
 
 
+TRAINING_MODULES = ["training/__init__.py", "training/optimizer.py",
+                    "training/steps.py", "checkpoint/__init__.py",
+                    "checkpoint/store.py", "checkpoint/lifecycle.py",
+                    "data/__init__.py", "data/pipeline.py",
+                    "configs/shapes.py"]
+
+
+@pytest.mark.parametrize("rel", TRAINING_MODULES)
+def test_import_check_covers_the_training_modules(rel):
+    assert PORT / rel in PORT_FILES
+
+
 def test_kernel_sources_are_found():
     assert _build.all_kernels() == KERNEL_PACKAGES
+    # the flash library holds the forward and the backward
+    assert [p.name for p in _build.sources("flash_attention")] == \
+        ["flash_attention.cu", "flash_attention_bwd.cu"]
     for name in _build.all_kernels():
         lib = _build.library_path(name)
         assert lib.parent == _build.BUILD_DIR
@@ -120,8 +138,10 @@ def test_engine_without_device_raises_without_a_card(no_card):
     lambda cfg: make_prefill_step(cfg, 16),
     lambda cfg: make_serve_step(cfg),
     lambda cfg: measure_cost_model(cfg, reps=1),
+    lambda cfg: init_train_state(cfg, 0),
+    lambda cfg: make_train_step(cfg),
 ], ids=["init_params", "make_prefill_step", "make_serve_step",
-        "measure_cost_model"])
+        "measure_cost_model", "init_train_state", "make_train_step"])
 def test_entry_points_default_to_cuda(no_card, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry(get_smoke_config("qwen2-0.5b"))
@@ -158,3 +178,60 @@ def test_kernel_wrappers_do_not_fall_back_off_the_cpu():
         halo_conv_block_tiles(tiles, [w], tile_h=8, tile_w=8)
     assert decode_attention.launches == 0 and flash_attention.launches == 0
     assert slstm_scan.launches == 0 and halo_conv_block_tiles.launches == 0
+
+
+def _meta_inputs(requires_grad: bool):
+    """Inputs of each wrapper on meta tensors (off the CPU, no card)."""
+    m = lambda *shape: torch.empty(shape, device="meta",  # noqa: E731
+                                   requires_grad=requires_grad)
+    pos = torch.empty((1, 16), dtype=torch.int32, device="meta")
+    return {
+        "decode_attention": lambda: decode_attention(
+            m(1, 4, 8), m(1, 16, 2, 8), m(1, 16, 2, 8), pos, 3),
+        "slstm_scan": lambda: slstm_scan(m(1, 3, 4, 2, 8), m(4, 2, 8, 8),
+                                         m(4, 2, 8)),
+        "halo_conv2d": lambda: halo_conv_block_tiles(
+            m(4, 10, 10, 3), [m(3, 3, 3, 5)], tile_h=8, tile_w=8),
+    }
+
+
+@pytest.mark.parametrize("name", ["decode_attention", "slstm_scan",
+                                  "halo_conv2d"])
+def test_wrappers_without_backward_refuse_inputs_that_need_grad(name):
+    """A kernel without a backward raises on inputs off the CPU that
+    require grad while grad mode is on, instead of returning an output
+    with no ``grad_fn``; without grad it goes on to its device checks."""
+    with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel has "
+                       "no backward"):
+        _meta_inputs(True)[name]()
+    with torch.no_grad(), pytest.raises(ValueError, match="needs CUDA"):
+        _meta_inputs(True)[name]()
+    with pytest.raises(ValueError, match="needs CUDA"):
+        _meta_inputs(False)[name]()
+
+
+def test_flash_attention_needing_grad_goes_through_its_backward(
+        monkeypatch):
+    """Flash attention has a backward kernel: inputs that require grad go
+    through ``FlashAttentionFn`` on any device (on the CPU its output
+    carries the Function's grad_fn); without grad they do not."""
+    calls = []
+
+    def spy(*args):
+        calls.append(args)
+        return "through the Function"
+
+    q = torch.empty((1, 5, 4, 8), device="meta", requires_grad=True)
+    k = torch.empty((1, 5, 2, 8), device="meta")
+    p = torch.empty((5,), dtype=torch.int32, device="meta")
+    monkeypatch.setattr(flash_ops.FlashAttentionFn, "apply", spy)
+    assert flash_attention(q, k, k, p, p) == "through the Function"
+    with torch.no_grad(), pytest.raises(ValueError, match="needs CUDA"):
+        flash_attention(q, k, k, p, p)
+    assert len(calls) == 1
+    monkeypatch.undo()
+    qc = torch.randn((1, 5, 4, 8), requires_grad=True)
+    kc = torch.randn((1, 5, 2, 8))
+    pc = torch.arange(5, dtype=torch.int32)
+    out = flash_attention(qc, kc, kc, pc, pc)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
