@@ -90,9 +90,14 @@ first fault (the script exits 0 only if every phase passed):
              The kernels phase also holds the backward kernel against its
              plain version (f32 and bf16, qwen2's heads at T=16, 1024 and
              4096, deepseek-7b's at 1024, phi3-mini's D=96, MLA's D=192
-             at 16 and 1024, a window, seamless's T=1 cross-attention,
-             positions from 100) and times it beside the backward of
-             ``scaled_dot_product_attention``.
+             at 16 and 1024 and one MLA head at 14000, a window,
+             seamless's T=1 cross-attention, positions from 100) and times
+             it beside the backward of ``scaled_dot_product_attention``,
+             with the bound of its tensor-core scheme (f32 as six bf16
+             passes) beside the f32 bound, and at T=4096 each of its
+             three launches' device time; ``[build]`` gives every backward
+             instance's dynamic shared memory, and the train step's
+             ``[profile]`` the backward's share of the step.
 
 The last lines are the card's name and power limit, one JSON object
 describing each kernel, and ``{"ok": true, "device": {...}}``.  Without a
@@ -158,6 +163,9 @@ from repro_torch.training.steps import (init_train_state, loss_and_grads,
 # bound counts its split passes at the bf16 peak in either dtype).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# The flash backward's products on the tensor cores: bf16 at its peak, f32
+# as six bf16 passes a product.
+TC_PEAK_FLOPS = {torch.float32: 989e12 / 6, torch.bfloat16: 989e12}
 # Tolerances of the repo's kernel tests (tests/test_kernels.py TOLS): f32
 # differs only in summation order; bf16 outputs round to 8 mantissa bits.
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -315,6 +323,14 @@ def phase_build() -> None:
                 print(f"[build] {name}{instance}: {line.strip()}")
     print(f"[build] {len(names)} kernels {names} ready in {dt:.2f} s "
           f"(built now: {sorted(logs)})")
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, d_class in enumerate(flash_ops.D_CLASSES):
+            smem = flash_ops.bwd_smem_bytes(dtype, d_class, 0, 0, 0)
+            plan = flash_ops.plan_flash_bwd(1, 16, 16, 1, 1, d_class, dtype)
+            print(f"[build] flash_attention bwd_stats/dkdv/dq_kernel<"
+                  f"{str(dtype)[6:]}, {c}>: dynamic smem {smem[0]} / "
+                  f"{smem[1]} / {smem[2]} B and about 5 B a visit-list "
+                  f"entry; threads {plan.threads}")
     # the halo conv and flash kernels' products must be tensor-core
     # instructions
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"  # the toolkit's
@@ -690,10 +706,11 @@ def _flash_bwd_cases(gen) -> dict:
     heads at T=16, 1024 and 4096 (the train step's shape), deepseek-7b's
     (H = KV = 32, D = 128) at T=1024, phi3-mini's D=96, MLA's (H = KV =
     128, D=192, V zero-padded from 128) at T=16 and 1024, a window,
-    seamless's unmasked T=1 over 16 frames and positions 100..115; f32 and
-    bf16.  Each is timed (kernel and plain by CUDA-graph replay; the
-    backward of ``scaled_dot_product_attention``, the yardstick, between
-    events) beside its bound."""
+    seamless's unmasked T=1 over 16 frames, positions 100..115 and one MLA
+    head at T=14000 (the f32 statistics' 64-row instance); f32 and bf16.
+    Each is timed (kernel and plain by CUDA-graph replay; the backward of
+    ``scaled_dot_product_attention``, the yardstick, between events)
+    beside its bound."""
     qwen2 = dict(h=H, kv=KV, d=D)
     mla = dict(h=128, kv=128, d=192, v_dim=128)
     cases = [(f"T={t} causal", t, True, 0, qwen2) for t in (16, 1024, 4096)]
@@ -705,6 +722,8 @@ def _flash_bwd_cases(gen) -> dict:
                0, mla),
               ("MLA heads (D=192, V padded from 128) T=1024 causal", 1024,
                True, 0, mla),
+              ("one MLA head (D=192) T=14000 causal (f32 statistics at 64 "
+               "rows)", 14000, True, 0, dict(mla, h=1, kv=1)),
               ("T=128 causal window=32", 128, True, 32, qwen2),
               ("seamless heads T=1 S=16 non-causal (cross, decode)", 1,
                False, 0, dict(h=16, kv=16, d=64, s=PROMPT_LEN)),
@@ -761,17 +780,52 @@ def _time_flash_bwd(label: str, bwd_args, causal: bool, window: int) -> dict:
     # valid pairs; q, k, v, out, d_out and positions read once, dq, dk, dv
     # written once
     n_bytes = _nbytes(q, k, v, qp, kp, out, d_out) + _nbytes(q, k, v)
+    flops = 10.0 * h * d * n_pairs
     timing = _report("flash_attention_bwd", label, q.dtype, ms, plain, lib,
-                     n_bytes, 10.0 * h * d * n_pairs)
+                     n_bytes, flops)
+    # the kernel's own scheme on the tensor cores: in f32 six bf16 passes
+    # a product, so the same work at a sixth of the bf16 peak
+    tc_ms, tc_by = bound_ms(n_bytes, flops, TC_PEAK_FLOPS[q.dtype])
     plan = flash_ops.plan_flash_bwd(b, t, kp.shape[0], h, k.shape[2], d,
                                     q.dtype)
-    print(f"[kernels] flash_attention_bwd {label} {str(q.dtype)[6:]}: plan "
-          f"{plan.rows}-row x {plan.tile_keys}-key tiles (stats, dQ) on grid "
-          f"{plan.row_grid}, {plan.keys}-key CTAs over {plan.step_rows}-row "
-          f"steps (dK/dV) on grid {plan.key_grid}, dynamic smem "
-          f"{plan.smem_bytes} B; library_ms is SDPA's backward alone "
-          "(autograd.grad between events)")
+    print(f"[kernels] flash_attention_bwd {label} {str(q.dtype)[6:]}: "
+          f"tensor-core bound_ms={tc_ms:.6f} ({tc_by}; "
+          f"{TC_PEAK_FLOPS[q.dtype] / 1e12:.2f} TFLOP/s), share "
+          f"{tc_ms / ms:.3f}; plan: stats {plan.stats_rows}-row CTAs x "
+          f"{plan.stats_keys}-key tiles on grid {plan.stats_grid}; dK/dV "
+          f"{plan.keys}-key CTAs ({plan.key_parts} warp(s) a 16 keys) over "
+          f"{plan.step_rows}-row steps, rows in {plan.n_split} chunk(s) of "
+          f"{plan.chunk}, grid {plan.key_grid}; dQ {plan.rows}-row CTAs "
+          f"({plan.row_parts} warp(s) a 16 rows) x {plan.tile_keys}-key "
+          f"tiles on grid {plan.row_grid}; dynamic smem {plan.smem_bytes} "
+          "B; library_ms is SDPA's backward alone (autograd.grad between "
+          "events)")
+    if t == TRAIN_T:
+        per = _bwd_launch_ms(lambda: flash_attention_bwd(
+            *bwd_args, causal=causal, window=window))
+        print(f"[kernels] flash_attention_bwd {label} {str(q.dtype)[6:]}: "
+              "device ms a launch (torch.profiler, 3 calls): "
+              + ", ".join(f"{k} {v:.5f}" for k, v in per.items()))
     return timing
+
+
+def _bwd_launch_ms(fn, calls: int = 3) -> dict[str, float]:
+    """Device ms of each of the backward's three launches, a call."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = {s: 0.0 for s in BWD_SYMBOLS}
+    for e in prof.key_averages():
+        for s in BWD_SYMBOLS:
+            if s in e.key:
+                per[s] += e.self_device_time_total / 1e3 / calls
+    if not all(per.values()):
+        raise AssertionError(f"flash_attention_bwd: a launch missing from "
+                             f"the profile: {per}")
+    return per
 
 
 SLSTM_ROW = {"name": "slstm_scan", "route": "cuda",
@@ -1732,6 +1786,9 @@ def _profile_train_step(label: str, fn) -> None:
     for key, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
         print(f"[profile] {label}:   {ms:10.3f} ms {100 * ms / busy:5.1f}% "
               f"x{n:<6d} {key}")
+    bwd = sum(kinds.get(s, [0.0])[0] for s in BWD_SYMBOLS)
+    print(f"[profile] {label}:   flash backward (the three launches): "
+          f"{bwd:.3f} ms a step, {100 * bwd / busy:.1f}% of device busy")
     print(f"[profile] {label}:   of which the optimizer (adamw_update, "
           f"between CUDA events): {opt_timer.ms():.3f} ms")
 

@@ -17,6 +17,11 @@ with the kernel's width class, K tile and shared memory; the tile-skip rule
 and the CTA's walk over K tiles are stated here as the kernel runs them
 (:func:`tile_rule`, :func:`visit_list`).  The kernels' shared-memory limit
 is set once per device.
+
+The backward's tiles, grids, shared memory and scratch are
+:func:`plan_flash_bwd`'s: by dtype and width class from the kernel's
+tables, with dK/dV's G x T rows cut into chunks where the KV heads alone
+give too few CTAs.
 """
 from __future__ import annotations
 
@@ -47,16 +52,27 @@ PASSES = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
 # flash_attention_launch: q, k, v, q_pos, k_pos, out; B, T, S, H, KV, D,
 # causal, window, dtype, rows, ks, smem; stream
 ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
-# The backward (flash_attention_bwd.cu): threads a CTA; by width class the
-# (query rows a CTA, keys a K tile) of the stats and dQ kernels (kRowBM,
-# kRowBN) and the (keys a CTA, query rows a step) of the dK/dV kernel
-# (kKeyBN, kKeyBM).
-BWD_THREADS = 256
-BWD_ROW_TILES = ((64, 64), (64, 64), (32, 32))
-BWD_KEY_TILES = ((32, 64), (32, 64), (32, 32))
+# The backward (flash_attention_bwd.cu), by dtype and width class: (a) the
+# statistics' (query rows a CTA, half of them where the visit list would not
+# fit, keys a K tile) (kStatsRows, kStatsKeys);
+# (b) dK/dV's (warps, warps sharing 16 keys, query rows a step) (kKeyWarps,
+# kKeyParts, kKeyStep); (c) dQ's (warps, warps sharing 16 rows, keys a K
+# tile) (kRowWarps, kRowParts, kRowKeys).
+BWD_STAGES = 2              # kStages: the cp.async ring of (b) and (c)
+BWD_STATS = {torch.float32: ((128, 32), (128, 32), (128, 16)),
+             torch.bfloat16: ((128, 64), (128, 32), (64, 16))}
+BWD_KEYS = {torch.float32: ((8, 1, 32), (8, 2, 16), (8, 4, 16)),
+            torch.bfloat16: ((8, 1, 64), (8, 2, 32), (8, 2, 32))}
+BWD_ROWS = {torch.float32: ((8, 1, 32), (8, 2, 16), (8, 4, 16)),
+            torch.bfloat16: ((8, 1, 64), (8, 1, 64), (8, 1, 32))}
+# dK/dV's query rows are cut into at most this many chunks, until the grid
+# holds about BWD_SPLIT_WAVES CTAs an SM
+MAX_SPLIT = 8
+BWD_SPLIT_WAVES = 3
 # flash_attention_bwd_launch: q, k, v, q_pos, k_pos, out, d_out, dq, dk, dv,
-# lse, delta; B, T, S, H, KV, D, causal, window, dtype, smem x 3; stream
-BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + \
+# lse, delta, planes, partials; B, T, S, H, KV, D, causal, window, dtype,
+# stats rows, n_split, chunk, smem x 3; stream
+BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 15 + \
     [ctypes.c_void_p]
 
 _lib_fns = None
@@ -298,38 +314,77 @@ flash_attention.launches = 0
 
 class FlashBwdPlan(NamedTuple):
     d_class: int                    # D padded up to the kernel's width class
-    rows: int                       # query rows a CTA of the stats/dQ kernels
-    tile_keys: int                  # keys a K tile of their walk
-    keys: int                       # keys a CTA of the dK/dV kernel
-    step_rows: int                  # query rows a step of its walk
-    row_grid: tuple[int, int, int]  # (KV x B, ceil(M / rows), 1)
-    key_grid: tuple[int, int, int]  # (KV x B, ceil(S / keys), 1)
-    smem_bytes: tuple[int, int, int]  # stats, dK/dV, dQ kernels
+    planes: int                     # bf16 planes an operand: 3 in f32, 1
+    stats_rows: int                 # (a): query rows a CTA
+    stats_keys: int                 # (a): keys a K tile
+    keys: int                       # (b): keys a CTA, 16 a group of warps
+    key_parts: int                  # (b): warps sharing 16 keys
+    step_rows: int                  # (b): query rows a step of its walk
+    n_split: int                    # (b): chunks of the G x T query rows
+    chunk: int                      # (b): rows a chunk, a multiple of step
+    rows: int                       # (c): query rows a CTA
+    row_parts: int                  # (c): warps sharing 16 rows
+    tile_keys: int                  # (c): keys a K tile
+    stats_grid: tuple[int, int, int]  # (KV x B, ceil(M / stats_rows), 1)
+    key_grid: tuple[int, int, int]    # (KV x B, key tiles x n_split, 1)
+    row_grid: tuple[int, int, int]    # (KV x B, ceil(M / rows), 1)
+    threads: tuple[int, int, int]     # (a), (b), (c)
+    smem_bytes: tuple[int, int, int]  # (a), (b), (c)
+    plane_values: int               # bf16 values of the planes scratch
+    partial_values: int             # f32 values of the dK/dV partials
 
 
-def bwd_smem_bytes(d_class: int, rows: int, tile_keys: int, keys: int,
-                   step_rows: int) -> tuple[int, int, int]:
-    """Dynamic shared memory of the stats, dK/dV and dQ kernels: f32 tiles
-    of rows (d_class + 1) floats apart, P/dS tiles of (tile + 16) floats,
-    row offsets (8 B), positions and statistics (4 B each) and a 64-byte
-    reduction scratch (``Geo`` in the kernel).  The same for both dtypes:
-    tiles are held in f32."""
-    ld, red = (d_class + 1) * 4, 64
-    stats = (rows + tile_keys) * ld + rows * 12 + tile_keys * 4 + red
-    dkdv = (2 * (keys + step_rows) * ld + 2 * keys * (step_rows + 16) * 4
-            + step_rows * 20 + keys * 4 + red)
-    dq = (2 * (rows + tile_keys) * ld + rows * (tile_keys + 16) * 4
-          + rows * 20 + tile_keys * 4 + red)
-    return stats, dkdv, dq
+def _r16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _list_bytes(n: int) -> int:
+    """A visit list of n tiles: flags, the list, its length."""
+    return _r16(n) + _r16(4 * n) + 16
+
+
+def bwd_smem_bytes(dtype: torch.dtype, d_class: int, n_key_tiles: int,
+                   n_steps: int, n_row_key_tiles: int,
+                   stats_rows: int | None = None) -> tuple[int, int, int]:
+    """Dynamic shared memory of the stats, dK/dV and dQ kernels (the
+    kernel's ``*_fixed`` and ``list_bytes``): bf16 rows of (d_class + 8)
+    values in ``planes`` planes; (a) Q planes, one K tile's planes, its
+    positions; (b) K and V planes, their positions, the ring of 2 stages of
+    Q and dO planes with positions, lse and delta, the parts' S and dP;
+    (c) Q and dO planes, lse and delta, the ring of K and V planes with
+    positions, the parts' S and dP; each with its visit list (n_key_tiles
+    K tiles of (a), n_steps row steps of (b), n_row_key_tiles of (c));
+    (a) at the table's rows unless ``stats_rows`` is given."""
+    c = D_CLASSES.index(d_class)
+    pl = 3 if dtype == torch.float32 else 1
+    rs = (d_class + 8) * 2
+    s_rows, s_keys = BWD_STATS[dtype][c]
+    s_rows = stats_rows or s_rows
+    k_warps, k_parts, bm = BWD_KEYS[dtype][c]
+    q_warps, q_parts, bn = BWD_ROWS[dtype][c]
+    keys, rows = 16 * k_warps // k_parts, 16 * q_warps // q_parts
+    stats = pl * (s_rows + s_keys) * rs + _r16(4 * s_keys)
+    dkdv = (2 * pl * keys * rs + _r16(4 * keys)
+            + BWD_STAGES * (2 * pl * bm * rs + 12 * bm)
+            + (k_warps * 2 * 16 * bm * 4 if k_parts > 1 else 0))
+    dq = (2 * pl * rows * rs + 8 * rows
+          + BWD_STAGES * (2 * pl * bn * rs + _r16(4 * bn))
+          + (q_warps * 2 * 16 * bn * 4 if q_parts > 1 else 0))
+    return (stats + _list_bytes(n_key_tiles), dkdv + _list_bytes(n_steps),
+            dq + _list_bytes(n_row_key_tiles))
 
 
 @functools.lru_cache(maxsize=256)
 def plan_flash_bwd(b: int, t: int, s: int, h: int, kv: int, d: int,
                    dtype: torch.dtype) -> FlashBwdPlan:
-    """The backward's tiles and grids: by width class only (the tables
-    ``BWD_ROW_TILES`` and ``BWD_KEY_TILES``, the kernel's), whatever the
-    dtype."""
-    if dtype not in TILE_KEYS:
+    """The backward's tiles by dtype and width class (the tables
+    ``BWD_STATS``, ``BWD_KEYS``, ``BWD_ROWS``, the kernel's; the
+    statistics at half their rows where S's visit list would not fit
+    otherwise), and the cut of dK/dV's G x T query rows into ``n_split``
+    chunks: as many as bring the grid to ``BWD_SPLIT_WAVES`` CTAs an SM, at
+    most ``MAX_SPLIT``, more only where a chunk's visit list would not fit
+    in shared memory."""
+    if dtype not in BWD_STATS:
         raise ValueError(f"{NAME}: dtype {dtype} not supported")
     if min(b, t, s, h, kv, d) < 1 or h % kv:
         raise ValueError(f"{NAME}: no backward plan for B={b} T={t} S={s} "
@@ -337,16 +392,39 @@ def plan_flash_bwd(b: int, t: int, s: int, h: int, kv: int, d: int,
     if d > MAX_HEAD_DIM:
         raise ValueError(f"{NAME}: head dim {d} outside 1..{MAX_HEAD_DIM}")
     c = next(i for i, dc in enumerate(D_CLASSES) if d <= dc)
-    rows, tile_keys = BWD_ROW_TILES[c]
-    keys, step_rows = BWD_KEY_TILES[c]
-    n_rt, n_kt = -(-(h // kv * t) // rows), -(-s // keys)
-    if max(n_rt, n_kt) > 65535:
-        raise ValueError(f"{NAME}: backward grid of {n_rt} row tiles and "
-                         f"{n_kt} key tiles, over 65535")
-    return FlashBwdPlan(D_CLASSES[c], rows, tile_keys, keys, step_rows,
-                        (kv * b, n_rt, 1), (kv * b, n_kt, 1),
-                        bwd_smem_bytes(D_CLASSES[c], rows, tile_keys, keys,
-                                       step_rows))
+    d_class, dp = D_CLASSES[c], -(-d // 16) * 16
+    pl = 3 if dtype == torch.float32 else 1
+    s_rows, s_keys = BWD_STATS[dtype][c]
+    k_warps, k_parts, bm = BWD_KEYS[dtype][c]
+    q_warps, q_parts, bn = BWD_ROWS[dtype][c]
+    keys, rows = 16 * k_warps // k_parts, 16 * q_warps // q_parts
+    m = h // kv * t
+    n_keys = -(-s // keys)
+    n_split = max(1, min(MAX_SPLIT, -(-BWD_SPLIT_WAVES * SM_COUNT
+                                      // (kv * b * n_keys))))
+    if bwd_smem_bytes(dtype, d_class, -(-s // s_keys), 1,
+                      1)[0] > SMEM_LIMIT:
+        s_rows //= 2
+    while True:
+        chunk = -(-m // (n_split * bm)) * bm    # ceil(m / n_split) to bm
+        n_split = -(-m // chunk)
+        smem = bwd_smem_bytes(dtype, d_class, -(-s // s_keys), chunk // bm,
+                              -(-s // bn), s_rows)
+        if smem[1] <= SMEM_LIMIT or chunk == bm:
+            break
+        n_split += 1
+    if max(smem) > SMEM_LIMIT:
+        raise ValueError(f"{NAME}: S={s} needs {max(smem)} bytes of shared "
+                         f"memory a CTA in the backward, over {SMEM_LIMIT}")
+    grids = ((kv * b, -(-m // s_rows), 1), (kv * b, n_keys * n_split, 1),
+             (kv * b, -(-m // rows), 1))
+    if max(g[1] for g in grids) > 65535:
+        raise ValueError(f"{NAME}: backward grid {grids}, over 65535")
+    return FlashBwdPlan(
+        d_class, pl, s_rows, s_keys, keys, k_parts, bm, n_split, chunk,
+        rows, q_parts, bn, *grids, (2 * s_rows, 32 * k_warps, 32 * q_warps),
+        smem, 2 * b * kv * pl * (m + s) * dp,
+        2 * n_split * b * s * kv * d if n_split > 1 else 0)
 
 
 def flash_attention_bwd(
@@ -379,13 +457,21 @@ def flash_attention_bwd(
         torch.empty_like(v)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
+    planes = torch.empty(plan.plane_values, dtype=torch.bfloat16,
+                         device=q.device)
+    partials = torch.empty(plan.partial_values, dtype=torch.float32,
+                           device=q.device) if plan.partial_values else None
     with torch.cuda.device(q.device):
         err = _lib()[2](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             k_pos.data_ptr(), out.data_ptr(), d_out.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), b, t, s, h, kv, d, int(bool(causal)),
-            int(window), _build.DTYPE_CODES[q.dtype], *plan.smem_bytes,
+            delta.data_ptr(), planes.data_ptr(),
+            None if partials is None else partials.data_ptr(), b, t, s, h,
+            kv, d, int(bool(causal)), int(window),
+            _build.DTYPE_CODES[q.dtype], plan.stats_rows, plan.n_split,
+            plan.chunk,
+            *plan.smem_bytes,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, NAME)
     flash_attention_bwd.launches += 1

@@ -205,24 +205,37 @@ def _c_const(name: str) -> int:
 
 def test_plan_tables_are_the_kernels():
     assert _c_array("kDMax") == list(ops.D_CLASSES)
-    assert list(zip(_c_array("kRowBM"), _c_array("kRowBN"))) == \
-        list(ops.BWD_ROW_TILES)
-    assert list(zip(_c_array("kKeyBN"), _c_array("kKeyBM"))) == \
-        list(ops.BWD_KEY_TILES)
-    assert _c_const("kThreads") == ops.BWD_THREADS
+    for name, table, col in (("kStatsRows", ops.BWD_STATS, 0),
+                             ("kStatsKeys", ops.BWD_STATS, 1),
+                             ("kKeyWarps", ops.BWD_KEYS, 0),
+                             ("kKeyParts", ops.BWD_KEYS, 1),
+                             ("kKeyStep", ops.BWD_KEYS, 2),
+                             ("kRowWarps", ops.BWD_ROWS, 0),
+                             ("kRowParts", ops.BWD_ROWS, 1),
+                             ("kRowKeys", ops.BWD_ROWS, 2)):
+        assert _c_array(name) == [row[col] for dtype in (torch.float32,
+                                                          torch.bfloat16)
+                                  for row in table[dtype]], name
+    assert _c_const("kStages") == ops.BWD_STAGES
     assert _c_const("kMaxSmem") == ops.SMEM_LIMIT
     assert _c_const("kMaxHeadDim") == ops.MAX_HEAD_DIM
+    assert re.search(r"\bmma\.sync\.aligned\.m16n8k16\.row\.col\.f32\.bf16"
+                     r"\.bf16\.f32\b", KERNEL_SRC.read_text())
+    # deterministic: no atomics, no reductions to memory (in the code)
+    code = re.sub(r"//.*", "", KERNEL_SRC.read_text())
+    assert not re.search(r"atomic|\bred\.", code)
 
 
 @pytest.mark.parametrize("d,smem", [
-    (64, (34368, 71872, 88640)), (128, (67136, 121024, 154176)),
-    (192, (66368, 144704, 138560))])
+    (64, ((69296, 167216, 167216), (27952, 75824, 75312))),
+    (128, ((130736, 173744, 173744), (43696, 103472, 140848))),
+    (192, ((228208, 219696, 219568), (42352, 169008, 204080)))])
 def test_plan_smem_by_class(d, smem):
-    """Each class's shared memory (the kernel's launch refuses any other
-    sum; these launched on the card)."""
-    for dtype in (torch.float32, torch.bfloat16):
+    """Each class's shared memory, by dtype (the kernel's launch refuses
+    any other sum)."""
+    for dtype, want in zip((torch.float32, torch.bfloat16), smem):
         plan = ops.plan_flash_bwd(1, 16, 16, 14, 2, d, dtype)
-        assert plan.smem_bytes == smem
+        assert plan.smem_bytes == want
 
 
 @settings(max_examples=200, deadline=None)
@@ -235,17 +248,49 @@ def test_plan_flash_bwd_covers_every_row_and_key(b, t, s, kv, group, d,
     plan = ops.plan_flash_bwd(b, t, s, group * kv, kv, d, dtype)
     assert d <= plan.d_class and plan.d_class in ops.D_CLASSES
     m = group * t
+    assert plan.stats_grid == (kv * b, math.ceil(m / plan.stats_rows), 1)
     assert plan.row_grid == (kv * b, math.ceil(m / plan.rows), 1)
-    assert plan.key_grid == (kv * b, math.ceil(s / plan.keys), 1)
+    assert plan.key_grid == (kv * b, math.ceil(s / plan.keys) * plan.n_split,
+                             1)
+    # the chunks cover the rows, none empty, each whole steps
+    assert plan.chunk % plan.step_rows == 0
+    assert (plan.n_split - 1) * plan.chunk < m <= plan.n_split * plan.chunk
+    assert 1 <= plan.n_split <= ops.MAX_SPLIT or plan.chunk == \
+        plan.step_rows
     assert max(plan.smem_bytes) <= ops.SMEM_LIMIT
-    assert all(x % 16 == 0 for x in (plan.rows, plan.tile_keys, plan.keys,
-                                     plan.step_rows))
-    assert max(plan.rows, plan.step_rows) <= ops.BWD_THREADS
-    # row offsets (8 bytes) start on an 8-byte boundary in every layout
-    ld = (plan.d_class + 1) * 4
-    assert ((plan.rows + plan.tile_keys) * ld) % 8 == 0
-    assert plan == ops.plan_flash_bwd(b, t, s, group * kv, kv, d,
-                                      torch.float32)
+    assert all(x % 16 == 0 for x in (plan.stats_rows, plan.stats_keys,
+                                     plan.keys, plan.step_rows, plan.rows,
+                                     plan.tile_keys))
+    assert plan.keys * plan.key_parts == 16 * plan.threads[1] // 32
+    assert plan.rows * plan.row_parts == 16 * plan.threads[2] // 32
+    assert plan.threads[0] == 2 * plan.stats_rows
+    dp, pl = -(-d // 16) * 16, 3 if dtype == torch.float32 else 1
+    assert plan.plane_values == 2 * b * kv * pl * (m + s) * dp
+    assert plan.partial_values == (2 * plan.n_split * b * s * kv * d
+                                   if plan.n_split > 1 else 0)
+
+
+def test_plan_flash_bwd_splits_rows_to_fill_the_card():
+    """qwen2's KV = 2 heads give 64 dK/dV CTAs at T = 4096: the rows are
+    cut into 7 chunks of one head each; deepseek-7b's 32 heads need no
+    cut."""
+    plan = ops.plan_flash_bwd(1, 4096, 4096, 14, 2, 64, torch.float32)
+    assert (plan.n_split, plan.chunk, plan.key_grid) == (7, 4096, (2, 224, 1))
+    plan = ops.plan_flash_bwd(1, 1024, 1024, 32, 32, 128, torch.float32)
+    assert plan.n_split == 1 and plan.partial_values == 0
+
+
+def test_plan_flash_bwd_halves_stats_rows_for_long_keys():
+    """At the 256 class in f32 the statistics' 128 rows leave room for a
+    visit list of some 850 K tiles; beyond it the plan takes the kernel's
+    64-row instance, whose sum the launch accepts as well."""
+    short = ops.plan_flash_bwd(1, 1024, 1024, 4, 4, 192, torch.float32)
+    long = ops.plan_flash_bwd(1, 20000, 20000, 4, 4, 192, torch.float32)
+    assert (short.stats_rows, long.stats_rows) == (128, 64)
+    assert long.stats_grid == (4, math.ceil(20000 / 64), 1)
+    assert long.smem_bytes[0] == ops.bwd_smem_bytes(
+        torch.float32, 256, math.ceil(20000 / 16), 1, 1, 64)[0]
+    assert max(long.smem_bytes) <= ops.SMEM_LIMIT
 
 
 def test_plan_flash_bwd_refuses():
@@ -278,23 +323,40 @@ def _skip(qps, kps, whole, causal, window) -> bool:
                          int(kps.max()), whole, causal, window) == 0
 
 
-def _emulate(q, k, v, qp, kp, out, do, causal, window):
-    """The three launches in float64, CTA by CTA, with the plan's tiles:
-    (a) per fold row the log-sum-exp of its valid scores in the log2
-    domain (an online max and sum over the K tiles) and delta; (b) per key
-    tile dK, dV over the row tiles; (c) per row tile dQ over the K tiles.
-    Tiles the rule skips are never looked at; every valid pair must lie in
-    a visited tile."""
+def _emulate(q, k, v, qp, kp, out, do, causal, window,
+             dtype=torch.float32):
+    """The three launches in float64, CTA by CTA, with the plan's tiles
+    and order: (a) per CTA of ``stats_rows`` fold rows the log-sum-exp of
+    its valid scores in the log2 domain (an online max and sum over its
+    visit list of ``stats_keys``-key tiles) and delta; (b) per CTA of
+    ``keys`` keys and row chunk, dK and dV over the chunk's visited steps
+    of ``step_rows`` rows, the chunks' partials then summed in chunk order
+    (by (c) in the kernel); (c) per CTA of ``rows`` rows, dQ over its
+    visited ``tile_keys``-key tiles.  Tiles the rule skips are never looked
+    at; every valid pair must lie in a visited tile of (b)."""
     q, k, v, out, do = (x.double().numpy() for x in (q, k, v, out, do))
     qp, kp = qp.numpy(), kp.numpy()
     b, t, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     g = h // kv
     m_rows = g * t
-    plan = ops.plan_flash_bwd(b, t, s, h, kv, d, torch.float32)
+    plan = ops.plan_flash_bwd(b, t, s, h, kv, d, dtype)
     sl2 = math.log2(math.e) / math.sqrt(d)
     dq, dk, dv = np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)
     seen = 0
+
+    def visits(r0, r1, n0, n1, tile, over_keys):
+        """The visit list of a CTA: over_keys, its rows [r0, r1) against
+        the K tiles of [n0, n1); else its keys [n0, n1) against the row
+        steps of [r0, r1)."""
+        if over_keys:
+            return [(r0, r1, j, min(j + tile, n1)) for j in range(n0, n1, tile)
+                    if not _skip(qps[r0:r1], kp[j:j + tile], j + tile <= s,
+                                 causal, window)]
+        return [(i, min(i + tile, r1), n0, n1) for i in range(r0, r1, tile)
+                if not _skip(qps[i:i + tile], kp[n0:n1], n0 + plan.keys <= s,
+                             causal, window)]
+
     for bz in range(b):
         for kvh in range(kv):
             rows = np.arange(m_rows)
@@ -304,52 +366,52 @@ def _emulate(q, k, v, qp, kp, out, do, causal, window):
             qps = qp[toks]
             kf, vf = k[bz, :, kvh], v[bz, :, kvh]
             lse = np.full(m_rows, np.inf)
-            for r0 in range(0, m_rows, plan.rows):                   # (a)
-                rs = slice(r0, r0 + plan.rows)
-                mx = np.full(len(qps[rs]), -np.inf)
-                l = np.zeros(len(qps[rs]))
-                for n0 in range(0, s, plan.tile_keys):
-                    ks = slice(n0, n0 + plan.tile_keys)
-                    if _skip(qps[rs], kp[ks], n0 + plan.tile_keys <= s,
-                             causal, window):
-                        continue
-                    ok = _pairs(qps[rs], kp[ks], causal, window)
-                    x = np.where(ok, qf[rs] @ kf[ks].T * sl2, -np.inf)
+            for r0 in range(0, m_rows, plan.stats_rows):             # (a)
+                r1 = min(r0 + plan.stats_rows, m_rows)
+                mx, l = np.full(r1 - r0, -np.inf), np.zeros(r1 - r0)
+                for _, _, n0, n1 in visits(r0, r1, 0, s, plan.stats_keys,
+                                           True):
+                    ok = _pairs(qps[r0:r1], kp[n0:n1], causal, window)
+                    x = np.where(ok, qf[r0:r1] @ kf[n0:n1].T * sl2, -np.inf)
                     new = np.maximum(mx, x.max(1))
                     top = np.where(new > -np.inf, new, 0)  # -inf - -inf: 0
-                    old = np.where(mx > -np.inf, mx, -np.inf)
-                    l = l * np.exp2(old - top) + np.exp2(x - top[:, None]
-                                                         ).sum(1)
+                    l = l * np.exp2(mx - top) + np.exp2(x - top[:, None]
+                                                        ).sum(1)
                     mx = new
-                lse[rs] = np.where(l > 0, mx + np.log2(np.maximum(l, 1e-300)),
-                                   np.inf)
+                lse[r0:r1] = np.where(l > 0, mx + np.log2(np.maximum(
+                    l, 1e-300)), np.inf)
 
-            def tile(rs, ks):
-                ok = _pairs(qps[rs], kp[ks], causal, window)
-                p = np.where(ok, np.exp2(qf[rs] @ kf[ks].T * sl2
-                                         - lse[rs, None]), 0)
-                return ok, p, p * (dof[rs] @ vf[ks].T - delta[rs, None])
+            def tile(r0, r1, n0, n1):
+                ok = _pairs(qps[r0:r1], kp[n0:n1], causal, window)
+                p = np.where(ok, np.exp2(qf[r0:r1] @ kf[n0:n1].T * sl2
+                                         - lse[r0:r1, None]), 0)
+                return ok, p, p * (dof[r0:r1] @ vf[n0:n1].T
+                                   - delta[r0:r1, None])
 
             for n0 in range(0, s, plan.keys):                        # (b)
-                ks = slice(n0, n0 + plan.keys)
-                for r0 in range(0, m_rows, plan.step_rows):
-                    rs = slice(r0, r0 + plan.step_rows)
-                    if _skip(qps[rs], kp[ks], n0 + plan.keys <= s, causal,
-                             window):
-                        continue
-                    ok, p, ds = tile(rs, ks)
-                    seen += int(ok.sum())
-                    dv[bz, ks, kvh] += p.T @ dof[rs]
-                    dk[bz, ks, kvh] += ds.T @ qf[rs] / math.sqrt(d)
+                n1 = min(n0 + plan.keys, s)
+                parts = []
+                for c0 in range(0, plan.n_split * plan.chunk, plan.chunk):
+                    pk = np.zeros((n1 - n0, d))
+                    pv = np.zeros((n1 - n0, d))
+                    for r0, r1, _, _ in visits(
+                            c0, min(c0 + plan.chunk, m_rows), n0, n1,
+                            plan.step_rows, False):
+                        ok, p, ds = tile(r0, r1, n0, n1)
+                        seen += int(ok.sum())
+                        pv += p.T @ dof[r0:r1]
+                        pk += ds.T @ qf[r0:r1]
+                    parts.append((pk, pv))
+                for pk, pv in parts:                      # in chunk order
+                    dk[bz, n0:n1, kvh] += pk / math.sqrt(d)
+                    dv[bz, n0:n1, kvh] += pv
             for r0 in range(0, m_rows, plan.rows):                   # (c)
-                rs = slice(r0, r0 + plan.rows)
-                for n0 in range(0, s, plan.tile_keys):
-                    ks = slice(n0, n0 + plan.tile_keys)
-                    if _skip(qps[rs], kp[ks], n0 + plan.tile_keys <= s,
-                             causal, window):
-                        continue
-                    _, _, ds = tile(rs, ks)
-                    dq[bz, toks[rs], heads[rs]] += ds @ kf[ks] / math.sqrt(d)
+                r1 = min(r0 + plan.rows, m_rows)
+                for _, _, n0, n1 in visits(r0, r1, 0, s, plan.tile_keys,
+                                           True):
+                    _, _, ds = tile(r0, r1, n0, n1)
+                    dq[bz, toks[r0:r1], heads[r0:r1]] += \
+                        ds @ kf[n0:n1] / math.sqrt(d)
     valid = b * kv * g * int(_pairs(qp, kp, causal, window).sum())
     assert seen == valid                    # no valid pair was skipped
     return dq, dk, dv
@@ -375,6 +437,73 @@ def test_emulated_kernel_passes_match_the_plain_backward(case):
     out = flash_attention_ref(q, k, v, qp, kp, causal=causal, window=window)
     want = flash_attention_bwd_ref(q, k, v, qp, kp, out, do, causal=causal,
                                    window=window)
-    got = _emulate(q, k, v, qp, kp, out, do, causal, window)
-    for g, w in zip(got, want, strict=True):
-        assert _rel(g, w) < EMU_TOL
+    for dtype in (torch.float32, torch.bfloat16):     # both plans' tiles
+        got = _emulate(q, k, v, qp, kp, out, do, causal, window, dtype)
+        for g, w in zip(got, want, strict=True):
+            assert _rel(g, w) < EMU_TOL
+
+
+# --------------------------------------------------------------------------- #
+# The kernel's f32 arithmetic: three bf16 pieces, six passes a slice          #
+# --------------------------------------------------------------------------- #
+
+
+def _pieces(x: torch.Tensor) -> list[torch.Tensor]:
+    """hi, mid, lo: bf16 values (held in f32) whose sum is x exactly."""
+    hi = x.to(torch.bfloat16).float()
+    mid = (x - hi).to(torch.bfloat16).float()
+    return [hi, mid, (x - hi - mid).to(torch.bfloat16).float()]
+
+
+def _six_pass(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernel forms it from f32 operands: both split into
+    three pieces, each 16-deep slice of the products summed from zero in
+    f32 over the six passes ``ops.PASSES`` (small first) and added to the
+    running f32 sum."""
+    pa, pb = _pieces(a), _pieces(b)
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for c in range(0, a.shape[1], 16):
+        part = torch.zeros_like(acc)
+        for i, j in ops.PASSES:
+            part = part + pa[i][:, c:c + 16] @ pb[j][c:c + 16]
+        acc = acc + part
+    return acc
+
+
+@pytest.mark.parametrize("case", [
+    dict(t=40, d=48, causal=True, window=0),
+    dict(t=33, d=64, causal=True, window=9),
+    dict(t=24, d=96, causal=False, window=0)],
+    ids=["causal-D48", "window-D64", "unmasked-D96"])
+def test_six_pass_scheme_matches_float64(case):
+    """Every product of the backward (S for the statistics and again for P,
+    dP, dV = P^T dO, dK = dS^T Q, dQ = dS K) in the six-pass scheme, with P
+    and dS split like the other operands, holds each gradient to float64
+    within the kernel's f32 tolerance (2e-5 of its largest magnitude); a
+    single bf16 pass (hi.hi) does not."""
+    t, d = case["t"], case["d"]
+    q, k, v, qp, kp, do = _case(t, t, 4, 2, d, seed=6)
+    b, h, g = 0, 3, 2                          # one head of the second group
+    qh, kh, vh, doh = q[b, :, h], k[b, :, h // g], v[b, :, h // g], \
+        do[b, :, h]
+    ok = torch.from_numpy(_pairs(qp.numpy(), kp.numpy(), case["causal"],
+                                 case["window"]))
+    sl2 = math.log2(math.e) / math.sqrt(d)
+
+    def backward(mm):
+        s2 = torch.where(ok, mm(qh, kh.T) * sl2, -torch.inf)
+        lse = torch.logsumexp(s2 * math.log(2), 1) / math.log(2)
+        p = torch.where(ok, torch.exp2(s2 - lse[:, None]), 0)
+        out = mm(p, vh)
+        ds = p * (mm(doh, vh.T) - (doh * out).sum(1, keepdim=True))
+        return (mm(ds, kh) / math.sqrt(d), mm(ds.T, qh) / math.sqrt(d),
+                mm(p.T, doh))
+
+    want = backward(lambda a, c: a.double() @ c.double())
+    got = backward(_six_pass)
+    one = backward(lambda a, c: a.to(torch.bfloat16).float()
+                   @ c.to(torch.bfloat16).float())
+    for x, w, y in zip(got, want, one, strict=True):
+        assert x.dtype == torch.float32
+        assert _rel(x, w) < TOL
+        assert _rel(y, w) > TOL
