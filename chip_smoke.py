@@ -37,7 +37,16 @@ first fault (the script exits 0 only if every phase passed):
              runs at YoloV2's widths and on a small block with ragged
              channel counts, and is also checked for tiling invariance
              (its standalone phase); its bound counts the bf16
-             tensor-core passes its split operands take.
+             tensor-core passes its split operands take.  The sLSTM
+             backward kernel runs at xLSTM's heads (H=4, dh=512) at T=1,
+             16, 1024 and 4096 (the train step's), at B=2 from a given
+             state with the final state's gradients, and at a ragged
+             dh=48, f32 and bf16: the forward's saving mode and the
+             backward against their plain versions (each tensor relative
+             to its largest magnitude), two runs and 16 vs 8 CTAs a
+             cluster bit-identical; at T >= 1024 timed beside the plain
+             backward, the forward's saving mode and its bound, and the
+             backward launch alone (profiler).
   3. serve   for each served model with random weights from seed 0 (full
              width; qwen2-0.5b, phi3-mini-3.8b and xlstm-1.3b whole, then
              deepseek-v2-236b cut to its dense layer and two MoE layers):
@@ -98,6 +107,16 @@ first fault (the script exits 0 only if every phase passed):
              three launches' device time; ``[build]`` gives every backward
              instance's dynamic shared memory, and the train step's
              ``[profile]`` the backward's share of the step.
+             Then the whole full-width xlstm-1.3b in f32 from seed 0 trains
+             2 AdamW steps at the same shape (one superblock recomputed a
+             repeat): the sLSTM scan twice (saving mode) and its backward
+             kernel once a sLSTM layer a step, no flash; loss and gradient
+             norm finite, ms and tokens/s a step, peak device memory under
+             80 GB, a ``[profile]`` of a third step.  Checks that need a
+             second copy of the state run at one full-width superblock (7
+             mLSTM + 1 sLSTM): its gradients twice, bit-identical, and
+             against the sLSTM plain forward and backward on the card;
+             then 1 mLSTM + 1 sLSTM layer at T=256 against the CPU.
 
 The last lines are the card's name and power limit, one JSON object
 describing each kernel, and ``{"ok": true, "device": {...}}``.  Without a
@@ -141,7 +160,11 @@ from repro_torch.kernels.halo_conv2d import (conv_block_ref,
                                              halo_conv_block_tiles_ref)
 from repro_torch.kernels.halo_conv2d.ops import _extract_tiles, plan_block
 from repro_torch.kernels.slstm_scan import ops as slstm_ops
-from repro_torch.kernels.slstm_scan import slstm_scan, slstm_scan_ref
+from repro_torch.kernels.slstm_scan import (slstm_scan, slstm_scan_bwd,
+                                            slstm_scan_bwd_ref,
+                                            slstm_scan_ref,
+                                            slstm_scan_saving,
+                                            slstm_scan_saving_ref)
 from repro_torch.models import model as M
 from repro_torch.models.config import StageDef
 from repro_torch.models.layers import attention as A
@@ -331,6 +354,16 @@ def phase_build() -> None:
                   f"{str(dtype)[6:]}, {c}>: dynamic smem {smem[0]} / "
                   f"{smem[1]} / {smem[2]} B and about 5 B a visit-list "
                   f"entry; threads {plan.threads}")
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in (SDH, 1024):
+            plan = slstm_ops.plan_scan(1, TRAIN_T, SH, dh, dtype,
+                                       backward=True)
+            print(f"[build] slstm_scan slstm_bwd_kernel<{str(dtype)[6:]}, "
+                  f"{plan.threads}> at dh={dh}: dynamic smem "
+                  f"{plan.smem_bytes} B, {plan.n_cta} CTAs a cluster, R^T "
+                  f"rows a slice: {plan.register_rows} in registers, "
+                  f"{plan.rows_per_slice} in shared memory, "
+                  f"{plan.streamed_rows} of dh streamed")
     # the halo conv and flash kernels' products must be tensor-core
     # instructions
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"  # the toolkit's
@@ -436,6 +469,7 @@ def phase_kernels() -> dict:
             "flash_attention": _flash_cases(gen)}
     rows["flash_attention_bwd"] = _flash_bwd_cases(gen)
     rows["slstm_scan"] = _slstm_cases(gen)
+    rows["slstm_scan_bwd"] = _slstm_bwd_cases(gen)
     rows["halo_conv2d"] = _halo_cases(gen)
     return rows
 
@@ -664,24 +698,24 @@ def _time_flash(label: str, args, causal: bool, window: int) -> dict:
     return dict(timing, cold_ms=cold, library_cold_ms=lib_cold)
 
 
-def _bwd_check(label: str, got, want, dtype) -> float:
-    """dq, dk, dv against the plain backward, each relative to its largest
-    magnitude (gradients scale with the inputs): ``TOL`` of that."""
+def _rel_check(name: str, label: str, names, got, want, dtype) -> float:
+    """Each tensor against the plain version's, relative to the latter's
+    largest magnitude: ``TOL`` of that."""
     torch.cuda.synchronize()
-    worst = 0.0
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+    worst, where = 0.0, ""
+    for n, g, w in zip(names, got, want, strict=True):
         if not torch.isfinite(g).all():
-            raise AssertionError(f"flash_attention_bwd {label}: non-finite "
-                                 f"{name}")
-        err = (g.float() - w.float()).abs().max().item()
-        rel = err / max(w.float().abs().max().item(), 1e-30)
-        worst = max(worst, rel)
-        if rel > TOL[dtype]:
-            raise AssertionError(f"flash_attention_bwd {label}: {name} "
-                                 f"error {err} ({rel:.3g} of max |{name}|)")
-    print(f"[kernels] flash_attention_bwd {label} {str(dtype)[6:]}: max "
-          f"error over dq/dk/dv {worst:.3g} of each one's max |x| (tol "
-          f"{TOL[dtype]:g})")
+            raise AssertionError(f"{name} {label}: non-finite {n}")
+        rel = (g.float() - w.float()).abs().max().item() / \
+            max(w.float().abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, where = rel, n
+    print(f"[kernels] {name} {label} {str(dtype)[6:]}: max error "
+          f"{worst:.3g} of max |x| (at {where}; over {', '.join(names)}; "
+          f"tol {TOL[dtype]:g})")
+    if worst > TOL[dtype]:
+        raise AssertionError(f"{name} {label}: {where} error {worst:.3g} of "
+                             "its max")
     return worst
 
 
@@ -741,7 +775,8 @@ def _flash_bwd_cases(gen) -> dict:
                                            window=window)
             got = flash_attention_bwd(*bwd_args, causal=causal,
                                       window=window)
-            err = _bwd_check(label, got, want, dtype)
+            err = _rel_check("flash_attention_bwd", label, ("dq", "dk", "dv"),
+                             got, want, dtype)
             del got, want
             timing = _time_flash_bwd(label, bwd_args, causal, window)
             if label == f"T={TRAIN_T} causal" and dtype == torch.float32:
@@ -801,30 +836,32 @@ def _time_flash_bwd(label: str, bwd_args, causal: bool, window: int) -> dict:
           "B; library_ms is SDPA's backward alone (autograd.grad between "
           "events)")
     if t == TRAIN_T:
-        per = _bwd_launch_ms(lambda: flash_attention_bwd(
-            *bwd_args, causal=causal, window=window))
+        per = _launch_ms("flash_attention_bwd", BWD_SYMBOLS,
+                         lambda: flash_attention_bwd(
+                             *bwd_args, causal=causal, window=window))
         print(f"[kernels] flash_attention_bwd {label} {str(q.dtype)[6:]}: "
               "device ms a launch (torch.profiler, 3 calls): "
               + ", ".join(f"{k} {v:.5f}" for k, v in per.items()))
     return timing
 
 
-def _bwd_launch_ms(fn, calls: int = 3) -> dict[str, float]:
-    """Device ms of each of the backward's three launches, a call."""
+def _launch_ms(name: str, symbols, fn, calls: int = 3) -> dict[str, float]:
+    """Device ms a call of each kernel whose symbol holds one of
+    ``symbols`` (torch.profiler over ``calls`` calls)."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    per = {s: 0.0 for s in BWD_SYMBOLS}
+    per = {s: 0.0 for s in symbols}
     for e in prof.key_averages():
-        for s in BWD_SYMBOLS:
+        for s in symbols:
             if s in e.key:
                 per[s] += e.self_device_time_total / 1e3 / calls
     if not all(per.values()):
-        raise AssertionError(f"flash_attention_bwd: a launch missing from "
-                             f"the profile: {per}")
+        raise AssertionError(f"{name}: a launch missing from the profile: "
+                             f"{per}")
     return per
 
 
@@ -973,6 +1010,127 @@ def _slstm_cluster_sizes(dtype, gen) -> None:
                                  "size")
 
 
+# the sLSTM backward has no TPU counterpart: the JAX train step
+# differentiates lax.scan over the model's _slstm_step
+SLSTM_BWD_ROW = {"name": "slstm_scan_bwd", "route": "cuda",
+                 "source": "repro_torch/kernels/slstm_scan/csrc/"
+                           "slstm_scan_bwd.cu",
+                 "replaces": None}
+SLSTM_GRADS = ("dwx", "dR", "db", "dh0", "dc0", "dn0", "dm0")
+
+
+def _flat(grads) -> list:
+    """dwx, dR, db and the initial state's four gradients, in a list."""
+    return [*grads[:3], *grads[3]]
+
+
+def _flat_fwd(out) -> list:
+    """hs, the final state and the saved pre, c, n, m, in a list."""
+    return [out[0], *out[1], *out[2]]
+
+
+def _slstm_bwd_cases(gen) -> dict:
+    """The backward kernel at xlstm-1.3b's heads (H=4, dh=512): T=1, 16,
+    1024 and TRAIN_T (the train step's) from the zero state, B=2 T=37
+    from a given state with the final state's gradients, and a ragged
+    dh=48; f32 and bf16.  First the forward's saving mode against the plain
+    forward (hs, final state, pre, c, n, m); then the backward kernel and
+    the plain backward on the plain forward's tensors, the four gradients
+    and the initial state's relative to their largest magnitude; two runs,
+    and 16 vs 8 CTAs a cluster, bit-identical.  Timed at T=1024 and
+    TRAIN_T beside the plain version, the forward's saving mode and its
+    bound; the backward launch alone by the profiler."""
+    cases = [("T=1 zero state", 1, 1, False, SH, SDH),
+             ("T=16 zero state", 1, 16, False, SH, SDH),
+             ("T=1024 zero state", 1, 1024, False, SH, SDH),
+             (f"T={TRAIN_T} zero state (train step)", 1, TRAIN_T, False, SH,
+              SDH),
+             ("B=2 T=37 given state, final-state gradients", 2, 37, True, SH,
+              SDH),
+             ("T=16 H=2 dh=48 given state, final-state gradients", 1, 16,
+              True, 2, 48)]
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, b, t, with_state, heads, dh in cases:
+            wx, r, bias, state = _slstm_inputs(b, t, with_state, dtype, gen,
+                                               heads, dh)
+            dhs = torch.randn((b, t, heads, dh), generator=gen,
+                              device="cuda")
+            seeds = tuple(torch.randn((b, heads, dh), generator=gen,
+                                      device="cuda")
+                          for _ in range(4)) if with_state else None
+            want_fwd = slstm_scan_saving_ref(wx, r, bias, state)
+            got_fwd = slstm_scan_saving(wx, r, bias, state)
+            _rel_check("slstm_scan", f"{label} saving mode",
+                       ("hs", "h", "c", "n", "m", "pre", "c_all", "n_all",
+                        "m_all"), _flat_fwd(got_fwd), _flat_fwd(want_fwd),
+                       dtype)
+            del got_fwd
+            hs, _, saved = want_fwd
+            args = (r, bias, state, hs, saved, dhs, seeds)
+            got = _flat(slstm_scan_bwd(*args, wx_dtype=dtype))
+            want = _flat(slstm_scan_bwd_ref(*args, wx_dtype=dtype))
+            err = _rel_check("slstm_scan_bwd", label, SLSTM_GRADS, got, want,
+                             dtype)
+            del want
+            again = [_flat(slstm_scan_bwd(*args, wx_dtype=dtype))]
+            if dh == SDH:
+                again.append(_flat(slstm_scan_bwd(*args, wx_dtype=dtype,
+                                                  n_cta=8)))
+            same = [all(torch.equal(x, y) for x, y in zip(got, run))
+                    for run in again]
+            print(f"[kernels] slstm_scan_bwd {label} {str(dtype)[6:]}: "
+                  f"rerun bit-identical {same[0]}"
+                  + (f"; 16 vs 8 CTAs a cluster bit-identical {same[1]}"
+                     if len(same) > 1 else ""))
+            if not all(same):
+                raise AssertionError(f"slstm_scan_bwd {label}: results "
+                                     "differ between runs or cluster sizes")
+            del got, again
+            if t >= 1024:
+                timing = _time_slstm_bwd(label, wx, args)
+                if t == TRAIN_T and dtype == torch.float32:
+                    row = dict(SLSTM_BWD_ROW, max_abs_err=err, **timing)
+    return row
+
+
+def _time_slstm_bwd(label: str, wx, args) -> dict:
+    r, bias, state, hs, saved, dhs, seeds = args
+    b, t, heads, dh = hs.shape
+    dtype = wx.dtype
+    ms = device_ms(lambda: slstm_scan_bwd(*args, wx_dtype=dtype), calls=3,
+                   reps=2)
+    plain = _event_ms(lambda: slstm_scan_bwd_ref(*args, wx_dtype=dtype),
+                      calls=1)
+    fwd_save = device_ms(lambda: slstm_scan_saving(wx, r, bias, state),
+                         calls=3, reps=2)
+    fwd = device_ms(lambda: slstm_scan(wx, r, bias, state), calls=3, reps=2)
+    launch = _launch_ms("slstm_scan_bwd", ("slstm_bwd_kernel",),
+                        lambda: slstm_scan_bwd(*args, wx_dtype=dtype),
+                        calls=5)["slstm_bwd_kernel"]
+    got = slstm_scan_bwd(*args, wx_dtype=dtype)
+    ins = (r, *saved, hs, dhs, *(state or ()), *(seeds or ()))
+    # the recurrence's products and dR's, each 2 x 4 x dh^2 a (row, step,
+    # head), plus about 40 operations of gating a state element and step
+    product = 2.0 * 4 * dh * dh * b * t * heads
+    flops = 2 * product + 40.0 * b * t * heads * dh
+    timing = _report("slstm_scan_bwd", label, dtype, ms, plain, None,
+                     _nbytes(*ins) + _nbytes(*_flat(got)), flops)
+    # the kernel alone: R, pre, c, n, m, dhs in, dpre and the initial
+    # state's gradient out, and the recurrence's products
+    k_ms, k_by = bound_ms(_nbytes(r, *saved, dhs, *(state or ())[1:],
+                                  *(seeds or ())) + _nbytes(*saved[:1])
+                          + _nbytes(*got[3]), product, PEAK_FLOPS[dtype])
+    print(f"[kernels] slstm_scan_bwd {label} {str(dtype)[6:]}: the backward "
+          f"launch alone {launch:.5f} ms (torch.profiler, 5 calls) against "
+          f"its bound {k_ms:.6f} ms ({k_by}; the recurrence's "
+          f"{product / 1e9:.3f} GFLOP), share {k_ms / launch:.3f}; the "
+          f"rest of the call (R^T, dR's matmul, db, casts) "
+          f"{ms - launch:.5f} ms; the forward in saving mode "
+          f"{fwd_save:.5f} ms, in serving mode {fwd:.5f} ms")
+    return dict(timing, launch_ms=launch, forward_saving_ms=fwd_save)
+
+
 def _halo_inputs(hw: int, chans: list[int], dtype, gen) -> tuple:
     """An image [1, hw, hw, chans[0]] and one [3, 3, C, C'] weight per pair
     of consecutive channel counts (He-scaled)."""
@@ -1115,7 +1273,8 @@ def _halo_cases(gen) -> dict:
 KERNELS = {"decode_attention": decode_attention,
            "flash_attention": flash_attention,
            "flash_attention_bwd": flash_attention_bwd,
-           "slstm_scan": slstm_scan, "halo_conv2d": halo_conv_block_tiles}
+           "slstm_scan": slstm_scan, "slstm_scan_bwd": slstm_scan_bwd,
+           "halo_conv2d": halo_conv_block_tiles}
 
 
 def _n_layers(stages, mixer: str) -> int:
@@ -1139,7 +1298,8 @@ def _expected_launches(cfg, prefills: int, tokens: int) -> dict[str, int]:
     return {"decode_attention": attn * tokens,
             "flash_attention": (attn + mla + enc + cross) * prefills
             + cross * tokens, "flash_attention_bwd": 0,
-            "slstm_scan": slstm * (prefills + tokens), "halo_conv2d": 0}
+            "slstm_scan": slstm * (prefills + tokens), "slstm_scan_bwd": 0,
+            "halo_conv2d": 0}
 
 
 def _counted(fn, counter: list):
@@ -1705,12 +1865,15 @@ def _plain_flash_autograd():
 
 def _expected_train_launches(cfg, steps: int) -> dict[str, int]:
     """A train step under recompute runs each attention layer's flash
-    forward twice (forward, then again in the backward) and its backward
-    once; no other kernel."""
+    forward and each sLSTM layer's scan (in its saving mode) twice
+    (forward, then again in the backward) and their backward kernels once;
+    no other kernel."""
     attn = _n_layers(cfg.stages, "attn")
+    slstm = _n_layers(cfg.stages, "slstm")
     return {"decode_attention": 0, "flash_attention": 2 * attn * steps,
-            "flash_attention_bwd": attn * steps, "slstm_scan": 0,
-            "halo_conv2d": 0}
+            "flash_attention_bwd": attn * steps,
+            "slstm_scan": 2 * slstm * steps,
+            "slstm_scan_bwd": slstm * steps, "halo_conv2d": 0}
 
 
 def _check_metrics(tag: str, metrics: dict) -> None:
@@ -1749,12 +1912,21 @@ class _OptimizerTimer:
 
 
 BWD_SYMBOLS = ("bwd_stats_kernel", "bwd_dkdv_kernel", "bwd_dq_kernel")
+# the port's kernels in a train step, by symbol: (kind, the group whose
+# share of the step is printed)
+TRAIN_KERNELS = {**{s: (s, "flash backward (the three launches)")
+                    for s in BWD_SYMBOLS},
+                 "flash_attention_kernel": ("flash forward", None),
+                 "slstm_cluster_kernel": ("sLSTM forward (saving mode)",
+                                          "sLSTM forward (saving mode)"),
+                 "slstm_bwd_kernel": ("sLSTM backward", "sLSTM backward")}
 
 
 def _profile_train_step(label: str, fn) -> None:
     """One train step under ``torch.profiler``: device time by kind (the
-    flash forward, each launch of its backward, cuBLAS products, the
-    optimizer's kernels by CUDA events, everything else elementwise)."""
+    port's kernels: flash forward, each launch of its backward, the sLSTM
+    forward and backward; cuBLAS products, the optimizer's kernels by CUDA
+    events, everything else elementwise)."""
     torch.cuda.synchronize()
     with _OptimizerTimer() as opt_timer, profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1769,10 +1941,10 @@ def _profile_train_step(label: str, fn) -> None:
         raise AssertionError(f"{label}: the profiler recorded no device time")
     kinds: dict[str, list] = {}
     for e in kernels:
-        key = next((s for s in BWD_SYMBOLS if s in e.key), None)
+        key = next((kind for s, (kind, _) in TRAIN_KERNELS.items()
+                    if s in e.key), None)
         if key is None:
-            key = ("flash forward" if "flash_attention_kernel" in e.key else
-                   "cuBLAS products" if any(
+            key = ("cuBLAS products" if any(
                        s in e.key.lower() for s in ("gemm", "gemv", "cublas",
                                                     "cutlass"))
                    else "elementwise, reductions, optimizer")
@@ -1786,9 +1958,13 @@ def _profile_train_step(label: str, fn) -> None:
     for key, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
         print(f"[profile] {label}:   {ms:10.3f} ms {100 * ms / busy:5.1f}% "
               f"x{n:<6d} {key}")
-    bwd = sum(kinds.get(s, [0.0])[0] for s in BWD_SYMBOLS)
-    print(f"[profile] {label}:   flash backward (the three launches): "
-          f"{bwd:.3f} ms a step, {100 * bwd / busy:.1f}% of device busy")
+    groups: dict[str, float] = {}
+    for kind, group in TRAIN_KERNELS.values():
+        if group is not None and kind in kinds:
+            groups[group] = groups.get(group, 0.0) + kinds[kind][0]
+    for group, ms in groups.items():
+        print(f"[profile] {label}:   {group}: {ms:.3f} ms a step, "
+              f"{100 * ms / busy:.1f}% of device busy")
     print(f"[profile] {label}:   of which the optimizer (adamw_update, "
           f"between CUDA events): {opt_timer.ms():.3f} ms")
 
@@ -1799,10 +1975,10 @@ def _train_batches(cfg, t: int, n: int) -> list:
     return [next(stream) for _ in range(n)]
 
 
-def _check_card_vs_cpu(cfg) -> None:
-    """TRAIN_CPU_CUT layers at full width, T=TRAIN_CPU_T: the card's loss,
+def _check_card_vs_cpu(cfg, keep=TRAIN_CPU_CUT) -> None:
+    """``keep``'s layers at full width, T=TRAIN_CPU_T: the card's loss,
     gradients and updated params against the CPU's from the same state."""
-    cut = _cut(cfg, TRAIN_CPU_CUT)
+    cut = _cut(cfg, keep)
     params, opt_state = init_train_state(cut, 1, TRAIN_OPT, device="cuda")
     cpu_params = _tree_map(params, lambda v: v.detach().to("cpu", copy=True))
     cpu_state = _tree_map(opt_state, lambda v: v.to("cpu", copy=True))
@@ -1845,6 +2021,48 @@ def _check_card_vs_cpu(cfg) -> None:
         raise AssertionError(f"card vs CPU update differs by {worst}")
 
 
+def _init_train(arch: str, cfg) -> tuple:
+    """Full-width params and AdamW state of ``cfg`` from seed 0 on the
+    card -> (params, opt_state, leaf names)."""
+    t0 = time.perf_counter()
+    params, opt_state = init_train_state(cfg, 0, TRAIN_OPT, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    torch.cuda.synchronize()
+    print(f"[train] {arch}: {cfg.n_layers} layers ({_kinds(cfg)}), "
+          f"d={cfg.d_model} H={cfg.n_heads} KV={cfg.n_kv_heads} "
+          f"D={cfg.resolved_head_dim}, {n_params} params ({cfg.param_dtype}, "
+          f"AdamW moments in {TRAIN_OPT.moment_dtype}) initialised in "
+          f"{time.perf_counter() - t0:.2f} s; {TRAIN_SHAPE.name} shape "
+          f"T={TRAIN_T} at batch {TRAIN_BATCH} (cut from "
+          f"{TRAIN_SHAPE.global_batch}); {TRAIN_OPT}")
+    _check_params(arch, n_params)
+    return params, opt_state, list(_leaf_names(params))
+
+
+def _timed_step(cfg, step, params, opt_state, batch, i: int,
+                total: dict) -> tuple:
+    """Train step ``i``, host-fenced: finite metrics, its launches exact
+    (added to ``total``) -> (params, opt_state)."""
+    before = _launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params, opt_state, metrics = step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches = {k: v - before[k] for k, v in _launches().items()}
+    for k, v in launches.items():
+        total[k] += v
+    _check_metrics(f"step {i}", metrics)
+    print(f"[train] {cfg.name} step {i}: loss {float(metrics['loss']):.6f} "
+          f"grad_norm {float(metrics['grad_norm']):.6f} lr "
+          f"{float(metrics['lr']):.6g}; {1e3 * dt:.3f} ms host-fenced, "
+          f"{TRAIN_BATCH * TRAIN_T / dt:.1f} tokens/s; launches "
+          + ", ".join(f"{k}={v}" for k, v in launches.items()))
+    if launches != _expected_train_launches(cfg, 1):
+        raise AssertionError(f"step {i} launches {launches}")
+    return params, opt_state
+
+
 def phase_train() -> dict[str, int]:
     """Full-width qwen2-0.5b trains TRAIN_STEPS steps at T=4096 (batch 1),
     recompute on: exact launches, finite loss and gradients, peak memory;
@@ -1854,20 +2072,8 @@ def phase_train() -> dict[str, int]:
     the restored weights; then 2 layers at T=256 against the CPU.  Returns
     the launches of the TRAIN_STEPS steps."""
     cfg = get_config(TRAIN_ARCH)
-    dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params, opt_state = init_train_state(cfg, 0, TRAIN_OPT, device="cuda")
-    names = list(_leaf_names(params))
-    n_params = sum(p.numel() for p in tree_leaves(params))
-    torch.cuda.synchronize()
-    print(f"[train] {TRAIN_ARCH}: {cfg.n_layers} layers, d={cfg.d_model} "
-          f"H={cfg.n_heads} KV={cfg.n_kv_heads} D={cfg.resolved_head_dim}, "
-          f"{n_params} params ({cfg.param_dtype}, AdamW moments in "
-          f"{TRAIN_OPT.moment_dtype}) initialised in "
-          f"{time.perf_counter() - t0:.2f} s; {TRAIN_SHAPE.name} shape "
-          f"T={TRAIN_T} at batch {TRAIN_BATCH} (cut from "
-          f"{TRAIN_SHAPE.global_batch}); {TRAIN_OPT}")
+    params, opt_state, names = _init_train(TRAIN_ARCH, cfg)
     batches = _train_batches(cfg, TRAIN_T, TRAIN_STEPS)
     step = make_train_step(cfg, TRAIN_OPT, device="cuda")
     _reset_launches()
@@ -1876,23 +2082,8 @@ def phase_train() -> dict[str, int]:
     for i, batch in enumerate(batches, 1):
         if i == TRAIN_STEPS:
             live = _save_and_restore(params, opt_state)
-        before = _launches()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        params, opt_state, metrics = step(params, opt_state, batch)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t1
-        launches = {k: v - before[k] for k, v in _launches().items()}
-        for k, v in launches.items():
-            total[k] += v
-        _check_metrics(f"step {i}", metrics)
-        print(f"[train] step {i}: loss {float(metrics['loss']):.6f} grad_norm "
-              f"{float(metrics['grad_norm']):.6f} lr "
-              f"{float(metrics['lr']):.6g}; {1e3 * dt:.3f} ms host-fenced, "
-              f"{TRAIN_BATCH * TRAIN_T / dt:.1f} tokens/s; launches "
-              + ", ".join(f"{k}={v}" for k, v in launches.items()))
-        if launches != _expected_train_launches(cfg, 1):
-            raise AssertionError(f"step {i} launches {launches}")
+        params, opt_state = _timed_step(cfg, step, params, opt_state, batch,
+                                        i, total)
         if i == 1:
             _check_against_plain(cfg, params, batches[1], names)
     _peak_memory("[train]", TRAIN_ARCH, f"init and {TRAIN_STEPS} steps")
@@ -1916,6 +2107,103 @@ def phase_train() -> dict[str, int]:
     torch.cuda.empty_cache()
     _check_card_vs_cpu(cfg)
     return total
+
+
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_STEPS = 2
+# one full-width superblock (7 mLSTM + 1 sLSTM) where a check needs a
+# second copy of the state (the whole model's state is 56 GB with its
+# gradients and moments); card vs CPU at its last two layers (1 + 1)
+XLSTM_SUPERBLOCK = ((0, tuple(range(8)), 1),)
+XLSTM_CPU_CUT = ((0, (6, 7), 1),)
+
+
+def phase_train_xlstm() -> dict[str, int]:
+    """The whole full-width xlstm-1.3b trains XLSTM_STEPS steps at T=4096
+    (batch 1), recompute on (one superblock a repeat): exact launches (the
+    sLSTM scan twice, in its saving mode, and its backward once a sLSTM
+    layer a step; no flash), finite loss and gradient norm, step times,
+    peak memory under 80 GB; a ``[profile]`` of one more step.  Then, the
+    whole model freed, the checks that need a second copy of the state at
+    one full-width superblock (:func:`_check_superblock`), and 1 mLSTM + 1
+    sLSTM layer at T=256 against the CPU.  Returns the launches of the
+    XLSTM_STEPS steps."""
+    cfg = get_config(XLSTM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, _ = _init_train(XLSTM_ARCH, cfg)
+    batches = _train_batches(cfg, TRAIN_T, XLSTM_STEPS + 1)
+    step = make_train_step(cfg, TRAIN_OPT, device="cuda")
+    _reset_launches()
+    total = {name: 0 for name in KERNELS}
+    for i, batch in enumerate(batches[:XLSTM_STEPS], 1):
+        params, opt_state = _timed_step(cfg, step, params, opt_state, batch,
+                                        i, total)
+    _peak_memory("[train]", XLSTM_ARCH, f"init and {XLSTM_STEPS} steps")
+    before = _launches()
+    _profile_train_step(f"{XLSTM_ARCH} train step T={TRAIN_T} (step "
+                        f"{XLSTM_STEPS + 1})",
+                        lambda: step(params, opt_state, batches[-1]))
+    _reset_from(before)
+    del params, opt_state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check_superblock(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check_card_vs_cpu(cfg, XLSTM_CPU_CUT)
+    return total
+
+
+@contextmanager
+def _plain_slstm_autograd():
+    """``slstm_scan``'s autograd path with the plain forward (saving) and
+    backward in place of the kernels (no launch counted).  Autograd of the
+    plain forward itself would keep a copy of R a step: 68 GB at T=4096."""
+    fwd, bwd = slstm_ops.slstm_scan_saving, slstm_ops.slstm_scan_bwd
+    slstm_ops.slstm_scan_saving = lambda wx, r, b, state, n_cta: \
+        slstm_scan_saving_ref(wx, r, b, state)
+    slstm_ops.slstm_scan_bwd = lambda *a, wx_dtype, n_cta: \
+        slstm_scan_bwd_ref(*a, wx_dtype=wx_dtype)
+    try:
+        yield
+    finally:
+        slstm_ops.slstm_scan_saving, slstm_ops.slstm_scan_bwd = fwd, bwd
+
+
+def _check_superblock(cfg) -> None:
+    """One full-width superblock at T=4096: the gradients twice with the
+    kernels, bit-identical (in place of a resume check, which would need
+    a second 56 GB state), and against the same step with the sLSTM plain
+    forward and backward on the card, at TRAIN_GRAD_TOL."""
+    cut = _cut(cfg, XLSTM_SUPERBLOCK)
+    params, _ = init_train_state(cut, 0, TRAIN_OPT, device="cuda")
+    names = list(_leaf_names(params))
+    batch, = _train_batches(cut, TRAIN_T, 1)
+    before = _launches()
+    loss, got = _grads(cut, params, batch)
+    loss_again, again = _grads(cut, params, batch)
+    after = _launches()
+    same = torch.equal(loss, loss_again) and all(
+        torch.equal(a, b) for a, b in zip(got, again, strict=True))
+    print(f"[train] {cfg.name} one superblock ({_kinds(cut)}), T={TRAIN_T}: "
+          f"the same gradients twice with the kernels: {len(names)} leaves "
+          f"and the loss bit-identical: {same}")
+    if not same:
+        raise AssertionError("superblock gradients differ between two runs")
+    del again
+    ran = {k: after[k] - before[k] for k in after}
+    if ran != _expected_train_launches(cut, 2):
+        raise AssertionError(f"superblock launches {ran}")
+    with _plain_slstm_autograd():
+        want_loss, want = _grads(cut, params, batch)
+    if _launches() != after:
+        raise AssertionError("the plain sLSTM run launched a kernel")
+    print(f"[train] {cfg.name} one superblock, kernels vs the sLSTM plain "
+          f"forward and backward on the card: loss {loss.item():.7f} vs "
+          f"{want_loss.item():.7f}")
+    _compare_grads("superblock, kernels vs plain sLSTM on the card", names,
+                   got, want)
+    _reset_from(before)
 
 
 def _save_and_restore(params: dict, opt_state: dict) -> tuple:
@@ -2015,7 +2303,8 @@ def main() -> int:
     print(f"[time] build and kernels: {time.perf_counter() - t0:.1f} s")
     # the kernels line carries the launches of the main path's engine run
     # of each kernel: qwen2's for the attention kernels, xLSTM's for the
-    # sLSTM scan (the first served model that launches it); the standalone
+    # sLSTM scan (the first served model that launches it); the backward
+    # kernels those of their train steps (qwen2's, xLSTM's); the standalone
     # halo conv block carries those of its own phase
     launches = {}
     for arch, keep, cpu_cut in SERVED:
@@ -2033,9 +2322,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(f"[time] model {arch}: {time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
-    # the backward's launches are those of the train steps
+    # the backward kernels' launches are those of the train steps
     launches["flash_attention_bwd"] = phase_train()["flash_attention_bwd"]
     print(f"[time] train {TRAIN_ARCH}: {time.perf_counter() - t1:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    launches["slstm_scan_bwd"] = phase_train_xlstm()["slstm_scan_bwd"]
+    print(f"[time] train {XLSTM_ARCH}: {time.perf_counter() - t1:.1f} s")
     print(f"[time] total: {time.perf_counter() - t0:.1f} s")
     kernels = [dict({"launches": launches.get(name, 0)}, **rows[name])
                for name in sorted(rows)]

@@ -1,6 +1,8 @@
-"""sLSTM recurrent scan with exponential gating: CUDA kernel, wrapper, plain
-version."""
-from .ops import slstm_scan
-from .ref import slstm_scan_ref
+"""sLSTM recurrent scan with exponential gating: CUDA kernels (forward and
+backward), wrappers, plain versions."""
+from .ops import SLSTMScanFn, slstm_scan, slstm_scan_bwd, slstm_scan_saving
+from .ref import slstm_scan_bwd_ref, slstm_scan_ref, slstm_scan_saving_ref
 
-__all__ = ["slstm_scan", "slstm_scan_ref"]
+__all__ = ["SLSTMScanFn", "slstm_scan", "slstm_scan_bwd",
+           "slstm_scan_bwd_ref", "slstm_scan_ref", "slstm_scan_saving",
+           "slstm_scan_saving_ref"]

@@ -4,7 +4,8 @@
 // Replaces: src/repro/kernels/slstm_scan/kernel.py:71 (slstm_scan, Pallas body
 //   _slstm_kernel), which xLSTM's sLSTM layers run over their gate
 //   pre-activations: once over the prompt in prefill, one step per decode
-//   token.
+//   token, and in training over the sequence, in saving mode, twice a layer
+//   a step under recompute.
 //
 // Per step t and head, with f32 accumulation:
 //   pre = wx_t + h_{t-1} R + b                     (gates i, f, z, o)
@@ -63,6 +64,12 @@
 //     order.  So every number is independent of n_cta and of where R's rows
 //     live: two cluster sizes give bit-identical results.
 //   - No atomics and no global counters: the barriers are in hardware.
+//
+// Saving mode (training): with pre, c_all, n_all and m_all given, the owner
+//   thread of each column also writes the step's f32 pre-activations
+//   [B, T, 4, H, dh] and the state (c, n, m) after it, [B, T, H, dh] each:
+//   what the backward (slstm_scan_bwd.cu) reads.  Serving passes none and
+//   writes nothing more.
 //
 // Types: wx and R in f32 or bf16 (one dtype), bias and state in f32, hs
 //   [B, T, H, dh] in f32.  The host plan (ops.py plan_scan) picks n_cta,
@@ -196,6 +203,10 @@ struct Args {
   float* c_out;
   float* n_out;
   float* m_out;
+  float* pre;          // [B, T, 4, H, dh] and [B, T, H, dh] each, or all
+  float* c_all;        // null (saving mode off)
+  float* n_all;
+  float* m_all;
   int steps, H, dh, cols, rps;
 };
 
@@ -524,7 +535,19 @@ slstm_cluster_kernel(const Args a) {
       h = o * cs / n;
       m = m_new;
       if (t + 1 < steps) send(h, cur ^ 1);
-      if (owner) a.hs[(((size_t)b * steps + t) * H + head) * dh + col] = h;
+      if (owner) {
+        const size_t o = (((size_t)b * steps + t) * H + head) * dh + col;
+        a.hs[o] = h;
+        if (a.pre != nullptr) {
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            a.pre[((((size_t)b * steps + t) * 4 + g) * H + head) * dh + col] =
+                pre[g];
+          a.c_all[o] = cs;
+          a.n_all[o] = n;
+          a.m_all[o] = m;
+        }
+      }
     }
     cur ^= 1;
   }
@@ -611,23 +634,30 @@ extern "C" int slstm_scan_max_clusters(int dtype, int n_cta, int cols,
 
 // dtype (of wx and r): 0 = float32, 1 = bfloat16.  wx [B, T, 4, H, dh],
 // r [4, H, dh, dh], bias [4, H, dh] f32, state in/out [B, H, dh] f32 (the
-// four inputs all null for the zero state), hs [B, T, H, dh] f32; all
-// contiguous on the current device.  The plan: n_cta CTAs a cluster, cols
+// four inputs all null for the zero state), hs [B, T, H, dh] f32, and in
+// saving mode pre [B, T, 4, H, dh], c_all, n_all, m_all [B, T, H, dh] f32
+// (all four null otherwise); all contiguous on the current device.  The plan: n_cta CTAs a cluster, cols
 // state columns a CTA, rps shared-memory rows a k slice, smem bytes of
 // dynamic shared memory (smem_bytes()).
 extern "C" int slstm_scan_launch(const void* wx, const void* r,
                                  const void* bias, const void* h0,
                                  const void* c0, const void* n0,
                                  const void* m0, void* hs, void* h_out,
-                                 void* c_out, void* n_out, void* m_out, int B,
-                                 int T, int H, int dh, int dtype, int n_cta,
-                                 int cols, int rps, int smem, void* stream) {
+                                 void* c_out, void* n_out, void* m_out,
+                                 void* pre, void* c_all, void* n_all,
+                                 void* m_all, int B, int T, int H, int dh,
+                                 int dtype, int n_cta, int cols, int rps,
+                                 int smem, void* stream) {
   if (B < 1 || T < 1 || H < 1 || dh < 1 || dh > kMaxDh || B > 65535 ||
       H > 65535)
     return (int)cudaErrorInvalidValue;
   const bool has_state = h0 != nullptr;
   if (has_state != (c0 != nullptr) || has_state != (n0 != nullptr) ||
       has_state != (m0 != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const bool saving = pre != nullptr;
+  if (saving != (c_all != nullptr) || saving != (n_all != nullptr) ||
+      saving != (m_all != nullptr))
     return (int)cudaErrorInvalidValue;
   // every column owned by exactly one CTA, none empty
   if (n_cta < 1 || n_cta > kMaxCluster || cols < 1 || cols > kMaxCols ||
@@ -657,6 +687,10 @@ extern "C" int slstm_scan_launch(const void* wx, const void* r,
          static_cast<float*>(c_out),
          static_cast<float*>(n_out),
          static_cast<float*>(m_out),
+         static_cast<float*>(pre),
+         static_cast<float*>(c_all),
+         static_cast<float*>(n_all),
+         static_cast<float*>(m_all),
          T, H, dh, cols, rps};
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = cluster_config(dim3(n_cta, H, B), n_cta, cols,

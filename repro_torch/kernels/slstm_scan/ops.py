@@ -1,16 +1,21 @@
-"""Wrapper of the sLSTM scan kernel (``csrc/slstm_scan.cu``).
+"""Wrappers of the sLSTM scan kernel (``csrc/slstm_scan.cu``) and of its
+backward (``csrc/slstm_scan_bwd.cu``).
 
-CPU tensors take the plain version; CUDA tensors launch the kernel or
-raise.  ``slstm_scan.launches`` counts kernel launches.  The kernel has no
-backward yet: on inputs off the CPU that require grad (grad mode on) the
-wrapper raises, so xLSTM trains on the CPU only.
+CPU tensors take the plain versions; CUDA tensors launch the kernels or
+raise.  ``slstm_scan.launches`` counts forward launches,
+``slstm_scan_bwd.launches`` backward ones.  Where grad mode is on and an
+input requires grad, ``slstm_scan`` runs through :class:`SLSTMScanFn`:
+its forward launches the kernel in its saving mode (the pre-activations
+and the state after every step are also written out), its backward the
+backward kernel (the plain versions for CPU tensors).
 
-The kernel runs one thread-block cluster per (head, batch row): its CTAs
-split the state columns, and exchange h once a step in distributed shared
-memory.  :func:`plan_scan` is that split, and how many rows of R each CTA
-keeps in shared memory.  The kernel's function attributes are set once
-per device, and the card is asked once per plan whether it can place a
-cluster of that size (it raises if not).
+Both kernels run one thread-block cluster per (head, batch row): its CTAs
+split the state columns, and exchange a vector once a step in distributed
+shared memory (the forward h, the backward each column's four gate
+gradients).  :func:`plan_scan` is that split, and how many rows of R each
+CTA keeps in registers and shared memory, for either kernel.  The kernels'
+function attributes are set once per device, and the card is asked once
+per plan whether it can place a cluster of that size (it raises if not).
 """
 from __future__ import annotations
 
@@ -21,27 +26,39 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from .. import _build
-from .ref import State, slstm_scan_ref
+from .ref import (State, Saved, param_grads, slstm_scan_bwd_ref,
+                  slstm_scan_ref, slstm_scan_saving_ref)
 
 NAME = "slstm_scan"
-MAX_DH = 1024               # kMaxDh in the kernel
+BWD_NAME = "slstm_scan_bwd"
+MAX_DH = 1024               # kMaxDh in the kernels
 MAX_CLUSTER = 16            # kMaxCluster: CTAs a cluster (non-portable > 8)
 MAX_COLS = 64               # kMaxCols: state columns a CTA owns at most
 SLICES = 8                  # kSlices: k slices, each summed by one thread
 SMEM_LIMIT = 232448         # kMaxSmem: dynamic shared memory a CTA (227 KB)
 MIN_COLS = 32               # columns a CTA owns before the cluster grows
-REG_ROWS = 32               # R rows a thread of the 256-thread build keeps
-                            # in registers, either dtype (none at 512)
+REG_ROWS = 32               # R rows a thread of the forward's 256-thread
+                            # build keeps in registers, either dtype (none
+                            # at 512)
+BWD_REG_WORDS = 16          # kRegWords of the backward's 256-thread build:
+                            # 32-bit words of R a gate (16 f32 rows, 32 bf16)
 
 # slstm_scan_launch: wx, r, bias, h0, c0, n0, m0, hs, h_out, c_out, n_out,
-# m_out; B, T, H, dh, dtype, n_cta, cols, rps, smem; stream
-ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-# slstm_scan_max_clusters: dtype, n_cta, cols, smem; int out
+# m_out, pre, c_all, n_all, m_all; B, T, H, dh, dtype, n_cta, cols, rps,
+# smem; stream
+ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# slstm_scan_max_clusters (and the backward's): dtype, n_cta, cols, smem;
+# int out
 MAX_CLUSTERS_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# slstm_scan_bwd_launch: rt, pre, c_all, n_all, m_all, c0, n0, m0, dhs,
+# dh_T, dc_T, dn_T, dm_T, dpre, dh0, dc0, dn0, dm0; B, T, H, dh, dtype,
+# n_cta, cols, rps, smem; stream
+BWD_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9 + \
+    [ctypes.c_void_p]
 
 _lib_fns = None
-_set_up: set[tuple[int, int]] = set()           # (device, dtype code)
-_max_clusters: dict[tuple, int] = {}            # (device, code, plan) -> n
+_set_up: set[tuple] = set()                     # (device, dtype, backward)
+_max_clusters: dict[tuple, int] = {}            # (device, ..., plan) -> n
 
 
 class ScanPlan(NamedTuple):
@@ -70,18 +87,30 @@ def smem_bytes(dh: int, cols: int, rps: int, elem: int) -> int:
             + SLICES * rps * 4 * cp * elem)
 
 
+def bwd_smem_bytes(dh: int, cols: int, rps: int, elem: int) -> int:
+    """The backward's: two mbarriers, the four gate gradients of every
+    column [2][dh][4] and two sets of one partial sum a slice and column in
+    f32, then R's shared-memory rows (``smem_bytes`` in the backward)."""
+    cp = -(-cols // 32) * 32
+    return (16 + 2 * (-(-dh // 4) * 4) * 16 + 2 * SLICES * cp * 4
+            + SLICES * rps * 4 * cp * elem)
+
+
 @functools.lru_cache(maxsize=256)
 def plan_scan(b: int, t: int, heads: int, dh: int, dtype: torch.dtype,
-              n_cta: Optional[int] = None) -> ScanPlan:
+              n_cta: Optional[int] = None,
+              backward: bool = False) -> ScanPlan:
     """Columns split over ``n_cta`` CTAs: by default one CTA per
     ``MIN_COLS`` columns, at most ``MAX_CLUSTER`` (16 at dh=512: 32 columns
     each), none left empty.  Each k slice keeps its first rows in registers
-    (32, where a CTA has 32 columns or fewer) and as
-    many of the next ones in shared memory as fit, copied in once a call
-    (at T=1 that is the one read, all in flight at once); the rest are read
-    from memory every step.
+    (where a CTA has 32 columns or fewer: 32 in the forward, 16 f32 or 32
+    bf16 in the backward) and as many of the next ones in shared memory as
+    fit, copied in once a call (at T=1 that is the one read, all in flight
+    at once); the rest are read from memory every step.
     ``n_cta`` overrides the cluster size (the results do not depend on
-    it)."""
+    it); ``backward`` plans the backward kernel, whose k runs over R's
+    columns (it reads R transposed) and whose shared memory holds four
+    floats a column where the forward holds h."""
     if not 1 <= dh <= MAX_DH:
         raise ValueError(f"{NAME}: head dim {dh} outside 1..{MAX_DH}")
     if n_cta is None:
@@ -95,64 +124,229 @@ def plan_scan(b: int, t: int, heads: int, dh: int, dtype: torch.dtype,
     elem = torch.finfo(dtype).bits // 8
     cp = -(-cols // 32) * 32
     kc = -(-dh // SLICES)
-    reg = REG_ROWS if cp == 32 else 0
-    fixed = smem_bytes(dh, cols, 0, elem)
+    smem = bwd_smem_bytes if backward else smem_bytes
+    reg = 0
+    if cp == 32:
+        reg = BWD_REG_WORDS * (4 // elem) if backward else REG_ROWS
+    fixed = smem(dh, cols, 0, elem)
     rps = min(max(0, kc - reg), (SMEM_LIMIT - fixed)
               // (SLICES * 4 * cp * elem))
     resident = sum(min(reg + rps, stop - start) for start, stop in slices(dh))
     return ScanPlan(n_cta, cols, SLICES * cp, (n_cta, heads, b), reg, rps,
-                    resident, dh - resident, smem_bytes(dh, cols, rps, elem))
+                    resident, dh - resident, smem(dh, cols, rps, elem))
 
 
 def _lib():
+    """(forward launch, backward launch, {backward: (setup, clusters)})."""
     global _lib_fns
     if _lib_fns is None:
         lib = _build.load(NAME)
         launch = lib.slstm_scan_launch
         launch.argtypes = ARGTYPES
-        launch.restype = ctypes.c_int
-        setup = lib.slstm_scan_setup
-        setup.argtypes = [ctypes.c_int]
-        setup.restype = ctypes.c_int
-        clusters = lib.slstm_scan_max_clusters
-        clusters.argtypes = MAX_CLUSTERS_ARGTYPES
-        clusters.restype = ctypes.c_int
-        _lib_fns = (launch, setup, clusters)
+        bwd = lib.slstm_scan_bwd_launch
+        bwd.argtypes = BWD_ARGTYPES
+        ask = {}
+        for backward, prefix in ((False, NAME), (True, BWD_NAME)):
+            setup = getattr(lib, f"{prefix}_setup")
+            setup.argtypes = [ctypes.c_int]
+            clusters = getattr(lib, f"{prefix}_max_clusters")
+            clusters.argtypes = MAX_CLUSTERS_ARGTYPES
+            ask[backward] = (setup, clusters)
+        for fn in (launch, bwd, *(f for pair in ask.values() for f in pair)):
+            fn.restype = ctypes.c_int
+        _lib_fns = (launch, bwd, ask)
     return _lib_fns
 
 
 def max_active_clusters(plan: ScanPlan, dtype: torch.dtype,
-                        device: torch.device) -> int:
-    """``cudaOccupancyMaxActiveClusters`` for ``plan`` on ``device``, asked
-    once per plan after the kernel's attributes are set (once per device);
-    raises if the card cannot place one such cluster, or if the first ask
-    comes during CUDA-graph capture."""
+                        device: torch.device, backward: bool = False) -> int:
+    """``cudaOccupancyMaxActiveClusters`` for ``plan`` on ``device`` (of the
+    backward kernel with ``backward``), asked once per plan after the
+    kernel's attributes are set (once per device); raises if the card
+    cannot place one such cluster, or if the first ask comes during
+    CUDA-graph capture."""
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
     code = _build.DTYPE_CODES[dtype]
-    key = (idx, code, plan.n_cta, plan.cols, plan.smem_bytes)
+    key = (idx, code, backward, plan.n_cta, plan.cols, plan.smem_bytes)
     n = _max_clusters.get(key)
     if n is not None:
         return n
+    name = BWD_NAME if backward else NAME
     if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(f"{NAME}: call once outside CUDA-graph capture "
+        raise RuntimeError(f"{name}: call once outside CUDA-graph capture "
                            f"with this plan {plan} before capturing")
-    _, setup, clusters = _lib()
+    setup, clusters = _lib()[2][backward]
     with torch.cuda.device(idx):
-        if (idx, code) not in _set_up:
-            _build.check(setup(code), NAME)
-            _set_up.add((idx, code))
+        if (idx, code, backward) not in _set_up:
+            _build.check(setup(code), name)
+            _set_up.add((idx, code, backward))
         out = ctypes.c_int(0)
         _build.check(clusters(code, plan.n_cta, plan.cols, plan.smem_bytes,
-                              ctypes.addressof(out)), NAME)
+                              ctypes.addressof(out)), name)
     if out.value < 1:
         raise RuntimeError(
-            f"{NAME}: cuda:{idx} cannot place one cluster of {plan.n_cta} "
+            f"{name}: cuda:{idx} cannot place one cluster of {plan.n_cta} "
             f"CTAs x {plan.threads} threads with {plan.smem_bytes} bytes of "
             f"shared memory each (cudaOccupancyMaxActiveClusters = "
             f"{out.value})")
     _max_clusters[key] = out.value
     return out.value
+
+
+def _f32(dev, *shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=dev)
+
+
+def _forward(wx, r, b, state, out_state, n_cta, save: bool):
+    """The plain version for CPU tensors; else one launch of the kernel.
+    -> (hs, final state, saved or None)."""
+    if wx.device.type == "cpu":
+        if save:
+            return slstm_scan_saving_ref(wx, r, b, state)
+        return (*slstm_scan_ref(wx, r, b, state, out_state=out_state), None)
+    bsz, t, four, heads, dh = wx.shape
+    b = b.float().contiguous()
+    dev = wx.device
+    outs = tuple(out_state) if out_state is not None else tuple(
+        _f32(dev, bsz, heads, dh) for _ in range(4))
+    ins = tuple(state) if state is not None else ()
+    _build.check_inputs(
+        NAME, (wx, r), f32s=(b, *ins, *outs),
+        shapes_ok=(four == 4 and t >= 1 and r.shape == (4, heads, dh, dh)
+                   and b.shape == (4, heads, dh) and len(outs) == 4
+                   and len(ins) in (0, 4)
+                   and all(s.shape == (bsz, heads, dh)
+                           for s in (*ins, *outs))),
+        head_dim=dh, max_head_dim=MAX_DH)
+    plan = plan_scan(bsz, t, heads, dh, wx.dtype, n_cta)
+    max_active_clusters(plan, wx.dtype, dev)
+    hs = _f32(dev, bsz, t, heads, dh)
+    saved = None
+    if save:
+        saved = (_f32(dev, bsz, t, 4, heads, dh),
+                 *(_f32(dev, bsz, t, heads, dh) for _ in range(3)))
+    ptrs = [s.data_ptr() for s in ins] if ins else [None] * 4
+    save_ptrs = [s.data_ptr() for s in saved] if save else [None] * 4
+    with torch.cuda.device(dev):
+        err = _lib()[0](
+            wx.data_ptr(), r.data_ptr(), b.data_ptr(), *ptrs, hs.data_ptr(),
+            *(s.data_ptr() for s in outs), *save_ptrs, bsz, t, heads, dh,
+            _build.DTYPE_CODES[wx.dtype], plan.n_cta, plan.cols,
+            plan.rows_per_slice, plan.smem_bytes,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, NAME)
+    slstm_scan.launches += 1
+    return hs, outs, saved
+
+
+def slstm_scan_saving(
+    wx: torch.Tensor, r: torch.Tensor, b: torch.Tensor,
+    state: Optional[Sequence[torch.Tensor]] = None, *,
+    n_cta: Optional[int] = None,
+) -> tuple[torch.Tensor, State, Saved]:
+    """The forward in its saving mode: (hs, final state, (pre, c, n, m) of
+    every step), what :func:`slstm_scan_bwd` reads; one launch of the
+    kernel (counted in ``slstm_scan.launches``), or the plain version for
+    CPU tensors.  No gradient is recorded."""
+    return _forward(wx, r, b, state, None, n_cta, save=True)
+
+
+def slstm_scan_bwd(
+    r: torch.Tensor,                      # [4, H, dh, dh]
+    b: torch.Tensor,                      # [4, H, dh]
+    state: Optional[Sequence[torch.Tensor]],
+    hs: torch.Tensor,                     # [B, T, H, dh] f32
+    saved: Saved,
+    dhs: torch.Tensor,                    # [B, T, H, dh] f32
+    d_state: Optional[Sequence[torch.Tensor]] = None,
+    *,
+    wx_dtype: torch.dtype = torch.float32,
+    n_cta: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, State]:
+    """The scan's gradients (as :func:`ref.slstm_scan_bwd_ref`): the plain
+    version for CPU tensors; else one launch of the backward kernel, which
+    runs the reverse scan and writes the pre-activations' gradient dpre
+    (dwx, cast to ``wx_dtype``) and the initial state's, then dR and db as
+    a batched product (``torch.einsum``) and a sum over (B, T) of dpre in
+    f32.
+    ``n_cta`` overrides the plan's cluster size (the results do not
+    depend on it)."""
+    if r.device.type == "cpu":
+        return slstm_scan_bwd_ref(r, b, state, hs, saved, dhs, d_state,
+                                  wx_dtype=wx_dtype)
+    pre, cs, ns, ms = saved
+    bsz, t, four, heads, dh = pre.shape
+    dev = r.device
+    ins = tuple(state[1:]) if state is not None else ()
+    seeds = tuple(d_state) if d_state is not None else ()
+    # the kernel reads R^T (rt[g, h, j, k] = R[g, h, k, j]) as the forward
+    # reads R: coalesced rows, the same register and shared-memory layout
+    rt = r.transpose(2, 3).contiguous()
+    _build.check_inputs(
+        BWD_NAME, (rt,), f32s=(pre, cs, ns, ms, *ins, hs, dhs, *seeds),
+        shapes_ok=(four == 4 and t >= 1 and r.shape == (4, heads, dh, dh)
+                   and all(x.shape == (bsz, t, heads, dh)
+                           for x in (cs, ns, ms, hs, dhs))
+                   and len(ins) in (0, 3) and len(seeds) in (0, 4)
+                   and all(x.shape == (bsz, heads, dh)
+                           for x in (*ins, *seeds))),
+        head_dim=dh, max_head_dim=MAX_DH)
+    plan = plan_scan(bsz, t, heads, dh, r.dtype, n_cta, backward=True)
+    max_active_clusters(plan, r.dtype, dev, backward=True)
+    dpre = _f32(dev, bsz, t, 4, heads, dh)
+    d0 = tuple(_f32(dev, bsz, heads, dh) for _ in range(4))
+    in_ptrs = [x.data_ptr() for x in ins] if ins else [None] * 3
+    seed_ptrs = [x.data_ptr() for x in seeds] if seeds else [None] * 4
+    with torch.cuda.device(dev):
+        err = _lib()[1](
+            rt.data_ptr(), *(x.data_ptr() for x in saved), *in_ptrs,
+            dhs.data_ptr(), *seed_ptrs, dpre.data_ptr(),
+            *(x.data_ptr() for x in d0), bsz, t, heads, dh,
+            _build.DTYPE_CODES[r.dtype], plan.n_cta, plan.cols,
+            plan.rows_per_slice, plan.smem_bytes,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, BWD_NAME)
+    slstm_scan_bwd.launches += 1
+    h0 = state[0] if state is not None else None
+    dr, db = param_grads(h0, hs, dpre, r.dtype, b.dtype)
+    return dpre.to(wx_dtype), dr, db, d0
+
+
+slstm_scan_bwd.launches = 0
+
+
+class SLSTMScanFn(torch.autograd.Function):
+    """The sLSTM scan with its backward kernel as the gradient: the forward
+    saves R, the bias, hs, the initial state and what the saving mode
+    writes; the backward launches :func:`slstm_scan_bwd` (its plain
+    version for CPU tensors), seeded with the final state's gradients where
+    they are given."""
+
+    @staticmethod
+    def forward(ctx, wx, r, b, h0, c0, n0, m0, n_cta):
+        state = None if h0 is None else (h0, c0, n0, m0)
+        hs, final, saved = slstm_scan_saving(wx, r, b, state, n_cta=n_cta)
+        ctx.save_for_backward(r, b, hs, *saved, *(state or ()))
+        ctx.wx_dtype, ctx.n_cta = wx.dtype, n_cta
+        ctx.set_materialize_grads(False)
+        return (hs, *final)
+
+    @staticmethod
+    def backward(ctx, dhs, *d_final):
+        r, b, hs, *rest = ctx.saved_tensors
+        saved, state = tuple(rest[:4]), tuple(rest[4:]) or None
+        dhs = torch.zeros_like(hs) if dhs is None else dhs.float().contiguous()
+        d_state = None
+        if any(d is not None for d in d_final):
+            d_state = tuple(
+                torch.zeros_like(hs[:, 0]) if d is None
+                else d.float().contiguous() for d in d_final)
+        dwx, dr, db, d0 = slstm_scan_bwd(r, b, state, hs, saved, dhs,
+                                         d_state, wx_dtype=ctx.wx_dtype,
+                                         n_cta=ctx.n_cta)
+        d0 = d0 if state is not None else (None,) * 4
+        return dwx, dr, db, *d0, None
 
 
 def slstm_scan(
@@ -165,45 +359,25 @@ def slstm_scan(
     n_cta: Optional[int] = None,
 ) -> tuple[torch.Tensor, State]:
     """sLSTM recurrence over T steps -> (hs [B, T, H, dh] f32, final
-    (h, c, n, m) each [B, H, dh] f32).
+    (h, c, n, m) each [B, H, dh] f32); differentiable through
+    :class:`SLSTMScanFn` where grad mode is on and an input requires grad.
 
     ``state`` is the carry before step 0 (None: (0, 0, 1, 0), as the Pallas
     kernel starts); with ``out_state`` the final state is written into those
-    tensors, which may be ``state`` itself (an in-place cache update).
-    ``n_cta`` overrides the plan's cluster size on the card."""
-    if wx.device.type == "cpu":
-        return slstm_scan_ref(wx, r, b, state, out_state=out_state)
-    _build.refuse_grad(NAME, wx, r, b, *(state or ()))
-    bsz, t, four, heads, dh = wx.shape
-    b = b.float().contiguous()
-    outs = tuple(out_state) if out_state is not None else tuple(
-        torch.empty((bsz, heads, dh), dtype=torch.float32, device=wx.device)
-        for _ in range(4))
-    ins = tuple(state) if state is not None else ()
-    _build.check_inputs(
-        NAME, (wx, r), f32s=(b, *ins, *outs),
-        shapes_ok=(four == 4 and t >= 1 and r.shape == (4, heads, dh, dh)
-                   and b.shape == (4, heads, dh) and len(outs) == 4
-                   and len(ins) in (0, 4)
-                   and all(s.shape == (bsz, heads, dh)
-                           for s in (*ins, *outs))),
-        head_dim=dh, max_head_dim=MAX_DH)
-    plan = plan_scan(bsz, t, heads, dh, wx.dtype, n_cta)
-    max_active_clusters(plan, wx.dtype, wx.device)
-    hs = torch.empty((bsz, t, heads, dh), dtype=torch.float32,
-                     device=wx.device)
-    ptrs = [s.data_ptr() for s in ins] if ins else [None] * 4
-    launch, _, _ = _lib()
-    with torch.cuda.device(wx.device):
-        err = launch(
-            wx.data_ptr(), r.data_ptr(), b.data_ptr(), *ptrs, hs.data_ptr(),
-            *(s.data_ptr() for s in outs), bsz, t, heads, dh,
-            _build.DTYPE_CODES[wx.dtype], plan.n_cta, plan.cols,
-            plan.rows_per_slice, plan.smem_bytes,
-            torch.cuda.current_stream(wx.device).cuda_stream)
-    _build.check(err, NAME)
-    slstm_scan.launches += 1
-    return hs, outs
+    tensors, which may be ``state`` itself (an in-place cache update, which
+    raises under grad).  ``n_cta`` overrides the plan's cluster size on the
+    card."""
+    ins = tuple(state) if state is not None else (None,) * 4
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (wx, r, b, *ins)):
+        if out_state is not None:
+            raise RuntimeError(f"{NAME}: out_state (an in-place state "
+                               "update) cannot run on inputs that require "
+                               "grad")
+        hs, *final = SLSTMScanFn.apply(wx, r, b, *ins, n_cta)
+        return hs, tuple(final)
+    hs, final, _ = _forward(wx, r, b, state, out_state, n_cta, save=False)
+    return hs, final
 
 
 slstm_scan.launches = 0

@@ -114,7 +114,8 @@ def run(so, dtype, t: int, with_state: bool, b: int = 1, heads: int = 4,
     for _ in range(3):                        # warm: R in L2, as in a scan
         _build.check(so.slstm_scan_launch(
             wx.data_ptr(), r.data_ptr(), bias.data_ptr(), *ins,
-            hs.data_ptr(), *(o.data_ptr() for o in outs), b, t, heads, dh,
+            hs.data_ptr(), *(o.data_ptr() for o in outs), *[None] * 4, b,
+            t, heads, dh,
             code, plan.n_cta, plan.cols, plan.rows_per_slice,
             plan.smem_bytes, torch.cuda.current_stream().cuda_stream),
             "slstm_phases")

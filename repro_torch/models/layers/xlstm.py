@@ -6,8 +6,11 @@ Port of the JAX package's ``models/layers/xlstm.py``.  The mLSTM runs its
 parallel (T x T decay-masked) form over a sequence, or its chunkwise form
 where ``cfg.mlstm_chunk`` is set and the sequence is longer, and its
 recurrent form against a cache.  Every sLSTM recurrence, a prompt's T
-steps or a decode token's one, goes through the ``slstm_scan`` op (the
-CUDA kernel on a card, its plain version on the CPU).  Unlike the JAX layers, a cache is updated in place.
+steps, a decode token's one or a training sequence's, goes through the
+``slstm_scan`` op (the CUDA kernel on a card, its plain version on the
+CPU); in training its gradient is the op's own backward (``SLSTMScanFn``:
+the backward kernel on a card).  Unlike the JAX layers, a cache is
+updated in place.
 """
 from __future__ import annotations
 

@@ -18,6 +18,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.halo_conv2d import halo_conv_block_tiles
 from repro_torch.kernels.slstm_scan import slstm_scan
+from repro_torch.kernels.slstm_scan import ops as slstm_ops
 from repro_torch.models import model as M
 from repro_torch.serving.cost_model import CostModel, PhaseCost, \
     measure_cost_model
@@ -106,6 +107,8 @@ def test_kernel_sources_are_found():
     # the flash library holds the forward and the backward
     assert [p.name for p in _build.sources("flash_attention")] == \
         ["flash_attention.cu", "flash_attention_bwd.cu"]
+    assert [p.name for p in _build.sources("slstm_scan")] == \
+        ["slstm_scan.cu", "slstm_scan_bwd.cu"]
     for name in _build.all_kernels():
         lib = _build.library_path(name)
         assert lib.parent == _build.BUILD_DIR
@@ -188,15 +191,12 @@ def _meta_inputs(requires_grad: bool):
     return {
         "decode_attention": lambda: decode_attention(
             m(1, 4, 8), m(1, 16, 2, 8), m(1, 16, 2, 8), pos, 3),
-        "slstm_scan": lambda: slstm_scan(m(1, 3, 4, 2, 8), m(4, 2, 8, 8),
-                                         m(4, 2, 8)),
         "halo_conv2d": lambda: halo_conv_block_tiles(
             m(4, 10, 10, 3), [m(3, 3, 3, 5)], tile_h=8, tile_w=8),
     }
 
 
-@pytest.mark.parametrize("name", ["decode_attention", "slstm_scan",
-                                  "halo_conv2d"])
+@pytest.mark.parametrize("name", ["decode_attention", "halo_conv2d"])
 def test_wrappers_without_backward_refuse_inputs_that_need_grad(name):
     """A kernel without a backward raises on inputs off the CPU that
     require grad while grad mode is on, instead of returning an output
@@ -235,3 +235,31 @@ def test_flash_attention_needing_grad_goes_through_its_backward(
     pc = torch.arange(5, dtype=torch.int32)
     out = flash_attention(qc, kc, kc, pc, pc)
     assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+
+
+def test_slstm_scan_needing_grad_goes_through_its_backward(monkeypatch):
+    """The sLSTM scan has a backward kernel: inputs that require grad go
+    through ``SLSTMScanFn`` on any device (on the CPU its output carries
+    the Function's grad_fn); without grad they do not."""
+    calls = []
+
+    def spy(*args):
+        calls.append(args)
+        return ("through the Function",) * 5
+
+    wx = torch.empty((1, 3, 4, 2, 8), device="meta", requires_grad=True)
+    r = torch.empty((4, 2, 8, 8), device="meta")
+    b = torch.empty((4, 2, 8), device="meta")
+    monkeypatch.setattr(slstm_ops.SLSTMScanFn, "apply", spy)
+    hs, final = slstm_scan(wx, r, b)
+    assert hs == "through the Function" and len(final) == 4
+    with torch.no_grad(), pytest.raises(ValueError, match="needs CUDA"):
+        slstm_scan(wx, r, b)
+    assert len(calls) == 1
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="needs CUDA"):
+        slstm_scan(wx, r, b)               # the Function's forward checks
+    wxc = torch.randn((1, 3, 4, 2, 8), requires_grad=True)
+    rc = torch.randn((4, 2, 8, 8)) * 8 ** -0.5
+    hs, _ = slstm_scan(wxc, rc, torch.zeros((4, 2, 8)))
+    assert type(hs.grad_fn).__name__ == "SLSTMScanFnBackward"

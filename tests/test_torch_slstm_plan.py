@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels.slstm_scan import ops, phases
 
 KERNEL_SRC = Path(ops.__file__).parent / "csrc" / "slstm_scan.cu"
+BWD_SRC = Path(ops.__file__).parent / "csrc" / "slstm_scan_bwd.cu"
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -22,8 +23,8 @@ def _ctypes_of(decl: str) -> list:
             for a in decl.split(",")]
 
 
-def _c_decl(name: str) -> str:
-    return re.search(rf'extern "C" int {name}\((.*?)\)', KERNEL_SRC.read_text(),
+def _c_decl(name: str, src: Path = KERNEL_SRC) -> str:
+    return re.search(rf'extern "C" int {name}\((.*?)\)', src.read_text(),
                      re.S).group(1)
 
 
@@ -140,3 +141,84 @@ def test_phase_markers_are_in_the_kernel():
     timed_src = phases.instrumented_source()
     assert timed_src.count("PHASE(") == len(phases.MARKERS) + 1  # + #define
     assert "slstm_phases_read" in timed_src
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("heads", [1, 4])
+def test_backward_plan_covers_every_column_and_row(heads, dtype):
+    """The backward's plan splits columns as the forward's (the same CTAs
+    own the same columns), keeps its register rows, then shared-memory
+    rows, within 227 KB, and streams nothing in the 256-thread build."""
+    elem = torch.finfo(dtype).bits // 8
+    for dh in range(1, ops.MAX_DH + 1):
+        plan = ops.plan_scan(1, 16, heads, dh, dtype, backward=True)
+        fwd = ops.plan_scan(1, 16, heads, dh, dtype)
+        assert (plan.n_cta, plan.cols, plan.threads, plan.grid) == \
+            (fwd.n_cta, fwd.cols, fwd.threads, fwd.grid)
+        assert plan.register_rows == (
+            ops.BWD_REG_WORDS * (4 // elem) if plan.threads == 256 else 0)
+        assert plan.resident_rows + plan.streamed_rows == dh
+        assert plan.resident_rows == sum(
+            min(plan.register_rows + plan.rows_per_slice, stop - start)
+            for start, stop in ops.slices(dh))
+        assert plan.smem_bytes <= ops.SMEM_LIMIT
+        assert plan.smem_bytes == ops.bwd_smem_bytes(
+            dh, plan.cols, plan.rows_per_slice, elem)
+        if plan.threads == 256:
+            assert plan.streamed_rows == 0, dh
+
+
+@pytest.mark.parametrize("dtype,reg,rps,smem", [
+    (torch.float32, 16, 48, 215056), (torch.bfloat16, 32, 32, 83984)])
+def test_backward_train_shape_plan(dtype, reg, rps, smem):
+    """xlstm-1.3b's sLSTM (H=4, dh=512) in the backward: 16 CTAs of 32
+    columns a head, all of R^T on the chip (f32: 16 rows a slice in
+    registers, 48 in shared memory)."""
+    plan = ops.plan_scan(1, 4096, 4, 512, dtype, backward=True)
+    assert (plan.n_cta, plan.cols, plan.threads) == (16, 32, 256)
+    assert (plan.register_rows, plan.rows_per_slice) == (reg, rps)
+    assert (plan.resident_rows, plan.streamed_rows) == (512, 0)
+    assert plan.smem_bytes == smem
+
+
+def test_backward_constants_match_the_kernel():
+    src = BWD_SRC.read_text()
+    consts = {name: int(re.search(rf"{name} = (\d+);", src).group(1))
+              for name in ("kSlices", "kMaxCols", "kMaxCluster", "kMaxDh",
+                           "kMaxSmem", "kRegWords")}
+    assert consts == {"kSlices": ops.SLICES, "kMaxCols": ops.MAX_COLS,
+                      "kMaxCluster": ops.MAX_CLUSTER, "kMaxDh": ops.MAX_DH,
+                      "kMaxSmem": ops.SMEM_LIMIT,
+                      "kRegWords": ops.BWD_REG_WORDS}
+
+
+def test_backward_launcher_argtypes_match_the_c_entry_points():
+    """The backward's ctypes signatures against its C declarations."""
+    assert _ctypes_of(_c_decl("slstm_scan_bwd_launch", BWD_SRC)) == \
+        ops.BWD_ARGTYPES
+    assert _ctypes_of(_c_decl("slstm_scan_bwd_max_clusters", BWD_SRC)) == \
+        ops.MAX_CLUSTERS_ARGTYPES
+    assert _c_decl("slstm_scan_bwd_setup", BWD_SRC).strip() == "int dtype"
+
+
+def test_backward_smem_bytes_matches_the_kernel_layout():
+    """Two mbarriers, the four gate gradients of every column [2][dh][4]
+    and one partial sum a slice and column, double-buffered, in f32, then
+    R^T's shared-memory rows, as the backward's smem_bytes() lays them
+    out."""
+    body = re.search(r"size_t smem_bytes\(int dh, int cols, int rps, "
+                     r"int elem\) \{(.*?)\n\}", BWD_SRC.read_text(),
+                     re.S).group(1)
+    assert "16 + 2 * (size_t)pad4(dh) * 4 * sizeof(float)" in body
+    assert "2 * kSlices * cp * sizeof(float)" in body
+    assert "kSlices * (size_t)rps * 4 * cp * elem" in body
+    assert ops.bwd_smem_bytes(512, 32, 48, 4) == \
+        16 + 2 * 512 * 16 + 2 * 8 * 32 * 4 + 8 * 48 * 4 * 32 * 4
+    assert ops.bwd_smem_bytes(48, 24, 0, 2) == 16 + 2 * 48 * 16 + 2 * 8 * 32 * 4
+
+
+def test_the_backward_uses_no_atomics():
+    """Run-to-run bit-identical results: no atomic or reduction to memory
+    outside comments."""
+    code = re.sub(r"//[^\n]*", "", BWD_SRC.read_text())
+    assert not re.search(r"atomic|\bred\.", code)
