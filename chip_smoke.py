@@ -128,6 +128,7 @@ import gc
 import json
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -160,6 +161,8 @@ from repro_torch.kernels.halo_conv2d import (conv_block_ref,
                                              halo_conv_block_tiles_ref)
 from repro_torch.kernels.halo_conv2d.ops import _extract_tiles, plan_block
 from repro_torch.kernels.slstm_scan import ops as slstm_ops
+from repro_torch.kernels.slstm_scan import phases as slstm_phases
+from repro_torch.kernels.slstm_scan.ref import param_grads
 from repro_torch.kernels.slstm_scan import (slstm_scan, slstm_scan_bwd,
                                             slstm_scan_bwd_ref,
                                             slstm_scan_ref,
@@ -355,15 +358,21 @@ def phase_build() -> None:
                   f"{smem[1]} / {smem[2]} B and about 5 B a visit-list "
                   f"entry; threads {plan.threads}")
     for dtype in (torch.float32, torch.bfloat16):
-        for dh in (SDH, 1024):
+        for dh in (SDH, 1024):       # the 256- and the 512-thread build
             plan = slstm_ops.plan_scan(1, TRAIN_T, SH, dh, dtype,
                                        backward=True)
+            cp = plan.threads // slstm_ops.SLICES
+            ring = slstm_ops.BWD_STAGES * slstm_ops.BWD_RUNS * (cp + 4) * 4
             print(f"[build] slstm_scan slstm_bwd_kernel<{str(dtype)[6:]}, "
-                  f"{plan.threads}> at dh={dh}: dynamic smem "
-                  f"{plan.smem_bytes} B, {plan.n_cta} CTAs a cluster, R^T "
-                  f"rows a slice: {plan.register_rows} in registers, "
-                  f"{plan.rows_per_slice} in shared memory, "
-                  f"{plan.streamed_rows} of dh streamed")
+                  f"{plan.threads}, {plan.register_rows}, "
+                  f"{0 if cp == 32 else 1}> at dh={dh}: dynamic smem "
+                  f"{plan.smem_bytes} B (of which the ring of "
+                  f"{slstm_ops.BWD_STAGES} steps' inputs {ring} B), "
+                  f"{plan.n_cta} CTAs a cluster, R^T rows a subslice of "
+                  f"{-(-dh // slstm_ops.BWD_SUBS)}: {plan.register_rows} "
+                  f"in registers, {plan.rows_per_slice} in shared memory; "
+                  f"{plan.streamed_rows} of dh streamed (registers and "
+                  "spills: its ptxas lines above)")
     # the halo conv and flash kernels' products must be tensor-core
     # instructions
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"  # the toolkit's
@@ -846,23 +855,26 @@ def _time_flash_bwd(label: str, bwd_args, causal: bool, window: int) -> dict:
 
 
 def _launch_ms(name: str, symbols, fn, calls: int = 3) -> dict[str, float]:
-    """Device ms a call of each kernel whose symbol holds one of
-    ``symbols`` (torch.profiler over ``calls`` calls)."""
+    """Device ms a launch of each kernel whose symbol holds one of
+    ``symbols`` (torch.profiler over ``calls`` calls of one launch each),
+    over the launches the profiler recorded: it can drop one, and a mean
+    over ``calls`` would then read low."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    per = {s: 0.0 for s in symbols}
+    total = {s: [0.0, 0] for s in symbols}
     for e in prof.key_averages():
         for s in symbols:
             if s in e.key:
-                per[s] += e.self_device_time_total / 1e3 / calls
-    if not all(per.values()):
+                total[s][0] += e.self_device_time_total / 1e3
+                total[s][1] += e.count
+    if not all(n for _, n in total.values()):
         raise AssertionError(f"{name}: a launch missing from the profile: "
-                             f"{per}")
-    return per
+                             f"{total}")
+    return {s: ms / n for s, (ms, n) in total.items()}
 
 
 SLSTM_ROW = {"name": "slstm_scan", "route": "cuda",
@@ -1105,9 +1117,10 @@ def _time_slstm_bwd(label: str, wx, args) -> dict:
     fwd_save = device_ms(lambda: slstm_scan_saving(wx, r, bias, state),
                          calls=3, reps=2)
     fwd = device_ms(lambda: slstm_scan(wx, r, bias, state), calls=3, reps=2)
-    launch = _launch_ms("slstm_scan_bwd", ("slstm_bwd_kernel",),
-                        lambda: slstm_scan_bwd(*args, wx_dtype=dtype),
-                        calls=5)["slstm_bwd_kernel"]
+    launches = slstm_phases.bwd_launch_ms(r.transpose(2, 3).contiguous(),
+                                          saved, dhs)
+    launch = statistics.median(launches)
+    parts = _slstm_bwd_parts(lambda: slstm_scan_bwd(*args, wx_dtype=dtype))
     got = slstm_scan_bwd(*args, wx_dtype=dtype)
     ins = (r, *saved, hs, dhs, *(state or ()), *(seeds or ()))
     # the recurrence's products and dR's, each 2 x 4 x dh^2 a (row, step,
@@ -1121,14 +1134,65 @@ def _time_slstm_bwd(label: str, wx, args) -> dict:
     k_ms, k_by = bound_ms(_nbytes(r, *saved, dhs, *(state or ())[1:],
                                   *(seeds or ())) + _nbytes(*saved[:1])
                           + _nbytes(*got[3]), product, PEAK_FLOPS[dtype])
-    print(f"[kernels] slstm_scan_bwd {label} {str(dtype)[6:]}: the backward "
-          f"launch alone {launch:.5f} ms (torch.profiler, 5 calls) against "
-          f"its bound {k_ms:.6f} ms ({k_by}; the recurrence's "
+    tag = f"[kernels] slstm_scan_bwd {label} {str(dtype)[6:]}"
+    print(f"{tag}: the backward launch alone, 5 launches (CUDA events "
+          f"each): {slstm_phases.spread(launches)}, "
+          f"{1e3 * launch / t:.4f} us a step at the median, against its "
+          f"bound {k_ms:.6f} ms ({k_by}; the recurrence's "
           f"{product / 1e9:.3f} GFLOP), share {k_ms / launch:.3f}; the "
-          f"rest of the call (R^T, dR's matmul, db, casts) "
-          f"{ms - launch:.5f} ms; the forward in saving mode "
-          f"{fwd_save:.5f} ms, in serving mode {fwd:.5f} ms")
+          f"rest of the call {ms - launch:.5f} ms; the forward in saving "
+          f"mode {fwd_save:.5f} ms, in serving mode {fwd:.5f} ms")
+    print(f"{tag}: the call by kernel (torch.profiler, 5 calls; ms a "
+          "launch x launches recorded a call, which may miss one): "
+          + "; ".join(f"{v:.5f} x{n:g} {k}" for k, (v, n) in parts.items()))
+    if t == TRAIN_T:
+        _dr_forms(tag, hs, got[0].float())
     return dict(timing, launch_ms=launch, forward_saving_ms=fwd_save)
+
+
+def _dr_forms(tag: str, hs, dpre) -> None:
+    """dR's product two ways: the einsum the wrapper calls (which copies
+    dpre into the layout of one batched product over the heads), and one
+    ``torch.bmm`` a gate on strided views that copies no operand."""
+    b, t, four, heads, dh = dpre.shape
+
+    def copy_free():
+        h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], 1)
+        a = h_prev.reshape(b * t, heads, dh).permute(1, 2, 0)
+        d = dpre.reshape(b * t, four, heads, dh)
+        dr = torch.empty((four, heads, dh, dh), device=dpre.device)
+        for g in range(four):
+            torch.bmm(a, d[:, g].transpose(0, 1), out=dr[g])
+        return dr
+
+    def einsum():
+        return param_grads(None, hs, dpre, torch.float32, torch.float32)[0]
+
+    diff = (copy_free() - einsum()).abs().max().item()
+    print(f"{tag}: dR's product (CUDA events, 5 calls each): the einsum "
+          f"with db {_event_ms(einsum):.5f} ms, a copy-free torch.bmm a "
+          f"gate {_event_ms(copy_free):.5f} ms (max difference {diff:.3g})")
+
+
+def _slstm_bwd_parts(fn, calls: int = 5) -> dict:
+    """``calls`` calls of ``fn`` (the sLSTM backward's wrapper) under
+    torch.profiler: the call's kernels by name -> (device ms a launch,
+    launches recorded a call), largest first."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = {e.key[:90]: (e.self_device_time_total / 1e3 / e.count,
+                          e.count / calls)
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total > 0}
+    if not any("slstm_bwd_kernel" in k for k in parts):
+        raise AssertionError(f"slstm_scan_bwd: no backward launch in the "
+                             f"profile of {calls} calls: {sorted(parts)}")
+    return dict(sorted(parts.items(), key=lambda kv: -kv[1][0] * kv[1][1]))
 
 
 def _halo_inputs(hw: int, chans: list[int], dtype, gen) -> tuple:
@@ -1965,6 +2029,14 @@ def _profile_train_step(label: str, fn) -> None:
     for group, ms in groups.items():
         print(f"[profile] {label}:   {group}: {ms:.3f} ms a step, "
               f"{100 * ms / busy:.1f}% of device busy")
+    launches = [e.self_device_time_total / 1e3 for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and "slstm_bwd_kernel" in e.name]
+    if launches:
+        print(f"[profile] {label}:   sLSTM backward, each of its "
+              f"{len(launches)} launches: "
+              f"{slstm_phases.spread(launches)}; "
+              + ", ".join(f"{x:.5f}" for x in launches))
     print(f"[profile] {label}:   of which the optimizer (adamw_update, "
           f"between CUDA events): {opt_timer.ms():.3f} ms")
 

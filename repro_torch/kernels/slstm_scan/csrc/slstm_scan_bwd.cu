@@ -34,7 +34,9 @@
 // B=1, T=4096), against the bytes of pre, c, n, m, dhs in and dpre out
 // (about 0.1 ms there).  And, being a recurrence, T times the latency of
 // one step: every column of dh_{t-1} needs the whole dpre_t of its head, so
-// the head's CTAs exchange dpre once a step.
+// the head's CTAs exchange dpre once a step.  A step is a chain: wait for
+// the peers' dpre, the product (bound by shared-memory reads of R^T and of
+// dpre), the partial sums across the CTA, the gating, the sends.
 //
 // What the design does about it: the forward's design, transposed.
 //   - One cluster of n_cta CTAs (16 at dh=512) per (head, batch row), grid
@@ -45,27 +47,54 @@
 //   - The wrapper hands the kernel R^T (rt[g][h][j][k] = R[g][h][k][j]), so
 //     CTA q reads rows j of rt at its columns k exactly as the forward reads
 //     rows k of R at its columns j: coalesced, 16-byte cp.async into shared
-//     memory.  R^T stays on the chip for the whole call: each thread keeps
-//     the first kRegWords words of its j slice in registers (16 f32 rows or
-//     32 bf16 rows: the backward's gating holds more live values than the
-//     forward's, so fewer rows than the forward's 32), the CTA the next
-//     ones in shared memory, and only what fits in neither (dh > 512, in the
-//     512-thread build) is read from L2 every step.
+//     memory.  The product's thread (sub, group) sums kColsPer = 4 adjacent
+//     columns over one of kSubs = 32 j subslices (16 rows at dh=512): a
+//     quarter-warp covers the CTA's 32 columns over one subslice, so one
+//     float4 load of dpre_t serves a warp four rows (one a quarter-warp, in
+//     the 4 cycles a float4 load takes in any case), and each row's float4
+//     feeds 16 fused multiply-adds: the product's shared-memory reads of
+//     dpre are a quarter of what one column a thread would need.
+//   - R^T stays on the chip for the whole call: each thread keeps the first
+//     kRegRows rows of its subslice (4 gates x 4 columns a row) in
+//     registers (two bf16 columns a word), the CTA the next ones in shared
+//     memory (a float4 of 4 columns a gate, conflict-free), and only what
+//     fits in neither (dh > 512, in the 512-thread build) is read from L2
+//     every step.  The registers are free for rows because the step's
+//     inputs wait in shared memory, not in registers:
+//   - A step's inputs (the CTA's columns of pre's four gates, of c, n, m of
+//     the step before and of dhs: eight contiguous runs, 1 KB at 32
+//     columns) are staged kStages - 1 steps ahead in a ring in shared
+//     memory by one thread of a product-only warp, with 1-D bulk copies
+//     (cp.async.bulk, the TMA's linear mode) counted on one mbarrier a
+//     stage.  The gating threads wait on that mbarrier and read shared
+//     memory: no load from device memory is left in the step.  The
+//     producer refills a stage right after the partial-sum barrier of the
+//     next iteration, when every gating thread has read it.
+//   - The gating that needs no dh_t (the exponentials, tanh, the new c and
+//     n, both maxima's shares: most of its latency) runs at the top of the
+//     iteration, while the peers' dpre is in flight, and waits in shared
+//     memory; after the product only the chain from dh_t is left.
 //   - dpre_t is exchanged in distributed shared memory: the four gate
 //     gradients of a column are 16 contiguous bytes, sent with one
 //     st.async.v4 to each peer and counted on the peer's mbarrier for that
 //     buffer (16 * dh bytes a step), double-buffered as the forward's h.
 //     Each thread of the product reads them as one broadcast float4 a row.
-//   - The j range is cut into kSlices slices that depend on dh alone;
-//     thread (slice, column) sums its slice in j order with one accumulator
-//     a gate, adds the four in a fixed order, and the slices are added in
-//     order.  So every number is independent of n_cta and of where R's rows
-//     live: two cluster sizes give bit-identical results, and so do two
-//     runs.  No atomics and no global counters.
+//   - The j range is cut into kSubs subslices that depend on dh alone;
+//     a thread sums its subslice in j order with one accumulator a gate
+//     and column, adds a column's four as (g0 + g1) + (g2 + g3), a shuffle
+//     adds subslices 2k and 2k + 1, and the gating thread adds the 16 pair
+//     sums in four runs of four in order, then the runs as
+//     (r0 + r1) + (r2 + r3).  So every number is independent of n_cta and
+//     of where R's rows live: two cluster sizes give bit-identical results,
+//     and so do two runs.  No atomics and no global counters.
+//   - The exchange's mbarrier is armed each step by the block's last
+//     thread, which never touches device memory in the step: the arrive's
+//     release semantics would make a thread with loads or stores in flight
+//     wait for them first, and every thread waits on that arrive.
 //
 // Types: R in f32 or bf16 (as the forward took it), everything else f32.
 //   The host plan (ops.py plan_scan(..., backward=True)) picks n_cta, cols
-//   and the shared-memory rows per slice; the launch checks them and the
+//   and the shared-memory rows per subslice; the launch checks them and the
 //   dynamic shared memory against smem_bytes().  slstm_scan_bwd_setup sets
 //   the function attributes once per device, before any launch.
 
@@ -79,12 +108,20 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kSlices = 8;                       // j slices; fixed by dh alone
-constexpr int kGaters = 4;    // slices whose threads gate: a warp a scheduler
+constexpr int kSlices = 8;    // blocks of cols_pad threads: the block size
+constexpr int kGaters = 4;    // the first ones gate: a warp a scheduler
+constexpr int kSubs = 32;                        // j subslices; fixed by dh
+constexpr int kColsPer = 4;   // adjacent columns a thread's product sums
+static_assert(kSubs == 32, "the gating sums four runs of four pairs");
 constexpr int kMaxCols = 64;                     // state columns a CTA owns
 constexpr int kMaxCluster = 16;                  // non-portable above 8
-constexpr int kRegWords = 16;  // R^T words a gate a thread of the 256-thread
-                               // build keeps in registers (two bf16 rows each)
+// rows of its subslice (4 gates x kColsPer columns each) that a thread of
+// the 256-thread build keeps in registers: 10 of 16 at dh=512, f32 or bf16
+// (two columns a word); more spill (ptxas)
+constexpr int kRegRows = 10;
+constexpr int kStages = 8;     // steps of inputs in the ring, 7 staged ahead
+constexpr int kRuns = 8;       // pre's 4 gates, c, n, m of t - 1, dhs of t
+constexpr int kGated = 9;      // values a gating thread keeps for its dh_t
 constexpr int kMaxDh = 1024;
 constexpr int kMaxSmem = 232448;                 // 227 KB a CTA on the H100
 
@@ -155,6 +192,17 @@ __device__ __forceinline__ void st_async4(unsigned addr, float4 v,
       "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar)
       : "memory");
 }
+// A 1-D bulk copy (the TMA's linear mode) of `bytes` (a multiple of 16,
+// both addresses 16-byte aligned) from global into this CTA's shared
+// memory, counted on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
 
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
@@ -167,15 +215,24 @@ __host__ __device__ __forceinline__ int pad32(int x) {
   return (x + 31) / 32 * 32;
 }
 __host__ __device__ __forceinline__ int pad4(int x) { return (x + 3) / 4 * 4; }
+__host__ __device__ __forceinline__ int pad16(int x) {
+  return (x + 15) / 16 * 16;
+}
 
-// Two mbarriers (16 bytes), dpre[2][dh][4], the slices' partial sums
-// [2][kSlices][cols_pad], then R^T's shared-memory rows
-// [kSlices][rps][4][cols_pad].
+// The mbarriers (two of the exchange, one a ring stage, padded to 16
+// bytes), dpre[2][dh][4], the subslice pairs' sums [2][kSubs / 2][cols_pad],
+// the ring [kStages][kRuns][cols_pad + 4] (a run's copy may start up to 3
+// floats before its first column), the initial state and the seed of dh
+// [4][cols_pad], each gating thread's values for its dh_t
+// [kGaters][kGated][cols_pad], all f32, then R^T's shared-memory rows
+// [kSubs][rps][4][cols_pad].
 size_t smem_bytes(int dh, int cols, int rps, int elem) {
   const size_t cp = (size_t)pad32(cols);
-  return 16 + 2 * (size_t)pad4(dh) * 4 * sizeof(float) +
-         2 * kSlices * cp * sizeof(float) +
-         kSlices * (size_t)rps * 4 * cp * elem;
+  return pad16((2 + kStages) * 8) + 2 * (size_t)pad4(dh) * 4 * sizeof(float) +
+         kSubs * cp * sizeof(float) +
+         kStages * kRuns * (cp + 4) * sizeof(float) + 4 * cp * sizeof(float) +
+         kGaters * kGated * cp * sizeof(float) +
+         kSubs * (size_t)rps * 4 * cp * elem;
 }
 
 struct Args {
@@ -200,17 +257,42 @@ struct Args {
   int steps, H, dh, cols, rps;
 };
 
-// Rows [j0, j0 + n) of this thread's column of rt, all four gates.
+// Ring run `run` of step t (pre's gates 0..3, then c, n, m of step t - 1,
+// then dhs of step t): its tensor and the element index of column col0.
+__device__ __forceinline__ const float* run_base(const Args& a, int run) {
+  switch (run) {
+    case 4: return a.c_all;
+    case 5: return a.n_all;
+    case 6: return a.m_all;
+    case 7: return a.dhs;
+    default: return a.pre;
+  }
+}
+__device__ __forceinline__ size_t run_start(const Args& a, int run, int t,
+                                            int b, int head, int col0) {
+  if (run < 4)
+    return ((((size_t)b * a.steps + t) * 4 + run) * a.H + head) * a.dh + col0;
+  const int step = run < 7 ? t - 1 : t;
+  return (((size_t)b * a.steps + step) * a.H + head) * a.dh + col0;
+}
+
+// R^T at rows [j0, j0 + n) of this thread's kColsPer columns, all four
+// gates: [row][gate][column], 0 past the owned columns.
 template <typename T, int kChunk>
-__device__ __forceinline__ void load_chunk(T (&v)[kChunk][4], const T* rcol,
-                                           size_t gate_stride, int dh, int j0,
-                                           int n) {
+__device__ __forceinline__ void load_chunk(T (&v)[kChunk][4][kColsPer],
+                                           const T* rcols, size_t gate_stride,
+                                           int dh, int j0, int n, int n_cols) {
 #pragma unroll
   for (int u = 0; u < kChunk; ++u) {
     if (u < n) {
 #pragma unroll
-      for (int g = 0; g < 4; ++g)
-        v[u][g] = rcol[g * gate_stride + (size_t)(j0 + u) * dh];
+      for (int g = 0; g < 4; ++g) {
+#pragma unroll
+        for (int i = 0; i < kColsPer; ++i)
+          v[u][g][i] = i < n_cols
+                           ? rcols[g * gate_stride + (size_t)(j0 + u) * dh + i]
+                           : zero<T>();
+      }
     }
   }
 }
@@ -227,8 +309,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// R^T rows held in registers as 32-bit words: one f32 row, or two bf16 rows
-// (the lower half the even row), per word and gate.
+// R^T values held in registers as 32-bit words: one f32 column, or two bf16
+// columns (the lower half the even one), per word.
 __device__ __forceinline__ unsigned row_bits(float x) {
   return __float_as_uint(x);
 }
@@ -247,24 +329,42 @@ __device__ __forceinline__ float word_row<__nv_bfloat16>(unsigned w,
   return __uint_as_float(half ? (w & 0xffff0000u) : (w << 16));
 }
 
-__device__ __forceinline__ void fma4(float (&acc)[4], float4 d, float r0,
-                                     float r1, float r2, float r3) {
-  acc[0] = fmaf(d.x, r0, acc[0]);
-  acc[1] = fmaf(d.y, r1, acc[1]);
-  acc[2] = fmaf(d.z, r2, acc[2]);
-  acc[3] = fmaf(d.w, r3, acc[3]);
+// kColsPer adjacent values of a shared-memory row, as f32: one 16-byte (f32)
+// or 8-byte (bf16) load.
+__device__ __forceinline__ void load4(const float* p, float (&r)[kColsPer]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  r[0] = x.x;
+  r[1] = x.y;
+  r[2] = x.z;
+  r[3] = x.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p,
+                                      float (&r)[kColsPer]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  r[0] = word_row<__nv_bfloat16>(x.x, 0);
+  r[1] = word_row<__nv_bfloat16>(x.x, 1);
+  r[2] = word_row<__nv_bfloat16>(x.y, 0);
+  r[3] = word_row<__nv_bfloat16>(x.y, 1);
+}
+
+// One row j: acc[column][gate] += dpre_t[gate, j] * R^T[gate][j][column].
+__device__ __forceinline__ void fma_row(float (&acc)[kColsPer][4], float4 d,
+                                        int g, const float (&r)[kColsPer]) {
+  const float dg = g == 0 ? d.x : g == 1 ? d.y : g == 2 ? d.z : d.w;
+#pragma unroll
+  for (int i = 0; i < kColsPer; ++i) acc[i][g] = fmaf(dg, r[i], acc[i][g]);
 }
 
 // kThreads: the block size it is built for, 256 (up to 32 columns a CTA) or
-// 512 (up to 64); kWords: 32-bit words of R^T a thread keeps in registers
-// per gate; kChunk: streamed rows a thread holds in registers at a time (0:
-// the build streams none; the launch checks that the plan keeps every row in
+// 512 (up to 64); kRows: rows of its subslice a thread keeps in registers;
+// kChunk: streamed rows a thread holds in registers at a time (0: the build
+// streams none; the launch checks that the plan keeps every row in
 // registers or shared memory).
-template <typename T, int kThreads, int kWords, int kChunk>
+template <typename T, int kThreads, int kRows, int kChunk>
 __global__ void __launch_bounds__(kThreads, 1)
 slstm_bwd_kernel(const Args a) {
-  constexpr int kPer = 4 / sizeof(T);           // rows a register word holds
-  constexpr int kRegRows = kWords * kPer;
+  constexpr int kPer = 4 / sizeof(T);           // columns a register word holds
+  constexpr int kWords = kColsPer / kPer;       // words a row and gate
   cg::cluster_group cluster = cg::this_cluster();
   const int n_cta = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -273,7 +373,8 @@ slstm_bwd_kernel(const Args a) {
   const int dh = a.dh, H = a.H, steps = a.steps;
   const int cols_pad = pad32(a.cols);
 
-  // thread (ks, c): j slice ks, owned column col0 + c
+  // gating thread (ks, c): owned column col0 + c, gated alike by the
+  // threads of the first kGaters blocks
   const int tid = threadIdx.x;
   const int ks = tid / cols_pad;
   const int c = tid - ks * cols_pad;
@@ -283,62 +384,86 @@ slstm_bwd_kernel(const Args a) {
   const bool gater = active && ks < kGaters;
   const bool owner = active && ks == 0;
   const int col = col0 + (active ? c : 0);
+  // the ring's producer: the first thread of the first non-gating block;
+  // the exchange's armer: the last thread, never a gater or the producer
+  const bool producer = tid == kGaters * cols_pad;
+  const bool armer = tid == (int)blockDim.x - 1;
 
-  // slice ks is j in [jbeg, jend): its first nreg rows in registers, the
-  // next nres in shared memory, the rest streamed
-  const int kc = (dh + kSlices - 1) / kSlices;
-  const int jbeg = min(dh, ks * kc);
+  // product thread (sub, grp): columns [4 grp, 4 grp + 4) of the CTA over j
+  // subslice sub = [jbeg, jend): its first nreg rows in registers, the next
+  // nres in shared memory, the rest streamed
+  const int n_groups = cols_pad / kColsPer;
+  const int sub = tid / n_groups;
+  const int grp = tid - sub * n_groups;
+  const int n_cols = max(0, min(kColsPer, n_own - kColsPer * grp));
+  const bool pactive = n_cols > 0;
+  const int kc = (dh + kSubs - 1) / kSubs;
+  const int jbeg = min(dh, sub * kc);
   const int jend = min(dh, jbeg + kc);
-  const int nreg = min(kRegRows, jend - jbeg);
+  const int nreg = min(kRows, jend - jbeg);
   const int nres = min(a.rps, jend - jbeg - nreg);
   const int nstr = jend - jbeg - nreg - nres;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int dh4 = pad4(dh);
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem_raw);
-  float4* v_s = reinterpret_cast<float4*>(smem_raw + 16);      // [2][dh4]
-  float* part = reinterpret_cast<float*>(v_s + 2 * dh4);  // [2][kSlices][cp]
-  const int part_elems = kSlices * cols_pad;
-  T* r_s = reinterpret_cast<T*>(part + 2 * part_elems);
+  float4* v_s = reinterpret_cast<float4*>(smem_raw +
+                                          pad16((2 + kStages) * 8));
+  float* part = reinterpret_cast<float*>(v_s + 2 * dh4);  // [2][16][cp]
+  const int part_elems = kSubs / 2 * cols_pad;
+  float* ring = part + 2 * part_elems;             // [kStages][kRuns][run]
+  const int run_elems = cols_pad + 4;
+  const int stage_elems = kRuns * run_elems;
+  float* init = ring + kStages * stage_elems;      // [4][cols_pad]
+  float* gate_s = init + 4 * cols_pad;             // [kGaters][kGated][cp]
+  T* r_s = reinterpret_cast<T*>(gate_s + kGaters * kGated * cols_pad);
   if (tid == 0) {
-    mbar_init(smem_addr(&bars[0]), 1);
-    mbar_init(smem_addr(&bars[1]), 1);
+    for (int i = 0; i < 2 + kStages; ++i) mbar_init(smem_addr(&bars[i]), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 
   const size_t gate_stride = (size_t)H * dh * dh;
   const T* rt_head = static_cast<const T*>(a.rt) + (size_t)head * dh * dh;
-  const T* rcol = rt_head + col;
+  const T* rcols = rt_head + col0 + kColsPer * grp;
 
   // the register rows: loads started first, in flight through the set-up
-  unsigned rw[kWords > 0 ? kWords : 1][4];
-  if (active) {
+  unsigned rw[kRows > 0 ? kRows : 1][4][kWords];
 #pragma unroll
-    for (int w = 0; w < kWords; ++w) {
+  for (int u = 0; u < kRows; ++u) {
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
+    for (int g = 0; g < 4; ++g) {
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) {
         unsigned bits = 0u;
 #pragma unroll
         for (int p = 0; p < kPer; ++p) {
-          const int u = w * kPer + p;
-          if (u < nreg)
-            bits |= row_bits(rcol[g * gate_stride + (size_t)(jbeg + u) * dh])
+          const int i = w * kPer + p;
+          if (u < nreg && i < n_cols)
+            bits |= row_bits(rcols[g * gate_stride + (size_t)(jbeg + u) * dh +
+                                   i])
                     << (16 * p);
         }
-        rw[w][g] = bits;
+        rw[u][g][w] = bits;
       }
     }
   }
 
   // the carries of column col from the later steps: zero, or the final
-  // state's gradient; held by every gating thread of the column alike
+  // state's gradient; held by every gating thread of the column alike.  The
+  // state before step 0 and the seed of dh_{T-1} wait in shared memory.
   const size_t sidx = ((size_t)b * H + head) * dh + col;
-  float dh_seed = 0.f, dc = 0.f, dn = 0.f, dm = 0.f;
+  float dc = 0.f, dn = 0.f, dm = 0.f;
   if (active && a.dh_T != nullptr) {
-    dh_seed = a.dh_T[sidx];
     dc = a.dc_T[sidx];
     dn = a.dn_T[sidx];
     dm = a.dm_T[sidx];
+  }
+  if (owner) {
+    const bool given = a.c0 != nullptr;
+    init[c] = given ? a.c0[sidx] : 0.f;
+    init[cols_pad + c] = given ? a.n0[sidx] : 1.f;
+    init[2 * cols_pad + c] = given ? a.m0[sidx] : 0.f;
+    init[3 * cols_pad + c] = a.dh_T != nullptr ? a.dh_T[sidx] : 0.f;
   }
   // every mbarrier of the cluster is initialised before any peer writes
   cluster_arrive();
@@ -357,9 +482,9 @@ slstm_bwd_kernel(const Args a) {
     const int j = (tid % lanes) * per;
     const int row0 = tid / lanes;
     const int row_step = blockDim.x / lanes;
-    for (int s = 0; s < kSlices; ++s) {
+    for (int s = 0; s < kSubs; ++s) {
       const int sb = min(dh, s * kc);
-      const int s_reg = min(kRegRows, min(dh, sb + kc) - sb);
+      const int s_reg = min(kRows, min(dh, sb + kc) - sb);
       const int s_len = min(dh, sb + kc) - sb - s_reg;
       T* dst_s = r_s + (size_t)s * slice_elems;
       for (int f = row0; f < a.rps * 4; f += row_step) {
@@ -381,6 +506,44 @@ slstm_bwd_kernel(const Args a) {
   cluster_wait();
   __syncthreads();              // every thread's shared-memory rows landed
 
+  // the ring: iteration s's inputs in stage s % kStages, counted on its
+  // mbarrier; a run's copy covers its owned columns, widened to 16-byte
+  // bounds (the tensors are 16-byte aligned, so it never leaves the 16
+  // bytes that hold a column), and the gating thread reads it at the
+  // column's offset in the copy
+  const unsigned ring_bar = smem_addr(bars + 2);
+  const unsigned ring_base = smem_addr(ring);
+  const bool even = dh % 4 == 0 && a.cols % 4 == 0;   // every run at column 0
+  auto fill = [&](int it) {
+    if (it >= steps) return;
+    const int tt = steps - 1 - it;
+    const int st = it % kStages;
+    const int runs = tt > 0 ? kRuns : 4;     // step 0's c, n, m: the state
+    unsigned bytes = 0;
+    for (int run = 0; run < kRuns; ++run) {
+      if (run >= runs && run < 7) continue;
+      const size_t e0 = run_start(a, run, tt, b, head, col0);
+      bytes += (unsigned)((((e0 + n_own + 3) & ~(size_t)3) -
+                           (e0 & ~(size_t)3)) * sizeof(float));
+    }
+    // reads of this stage by the generic proxy come before the copies
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect(ring_bar + 8u * st, bytes);
+    for (int run = 0; run < kRuns; ++run) {
+      if (run >= runs && run < 7) continue;
+      const size_t e0 = run_start(a, run, tt, b, head, col0);
+      const size_t a0 = e0 & ~(size_t)3;
+      bulk_copy(ring_base + (unsigned)((st * stage_elems + run * run_elems) *
+                                       sizeof(float)),
+                run_base(a, run) + a0,
+                (unsigned)((((e0 + n_own + 3) & ~(size_t)3) - a0) *
+                           sizeof(float)),
+                ring_bar + 8u * st);
+    }
+  };
+  if (producer)
+    for (int it = 0; it < kStages; ++it) fill(it);
+
   // gating thread (ks, c) sends column col's dpre to peers ks, ks + kGaters
   const unsigned v_base = smem_addr(v_s);
   const unsigned bar_base = smem_addr(bars);
@@ -390,91 +553,156 @@ slstm_bwd_kernel(const Args a) {
                 map_rank(bar_base + 8u * buf, p));
   };
 
-  const T* rs = r_s + (size_t)ks * slice_elems + c;
+  const T* rs = r_s + (size_t)sub * slice_elems + kColsPer * grp;
   const int j_res = jbeg + nreg;            // first shared-memory row
   const int j_str = j_res + nres;           // first streamed row
-  T v[kChunk > 0 ? kChunk : 1][4];
+  T v[kChunk > 0 ? kChunk : 1][4][kColsPer];
   // iteration s gates step t = steps - 1 - s (none at s = steps) after the
   // product of dpre_{t+1}, received in iteration s - 1's buffer
   for (int s = 0; s <= steps; ++s) {
     const int t = steps - 1 - s;
-    // independent of the exchange: started before the wait
-    float pre[4] = {0.f, 0.f, 0.f, 0.f};
-    float c_prev = 0.f, n_prev = 1.f, m_prev = 0.f, dh_up = 0.f;
-    if (gater && t >= 0) {
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        pre[g] = a.pre[((((size_t)b * steps + t) * 4 + g) * H + head) * dh +
-                       col];
-      if (t > 0) {
-        const size_t p = (((size_t)b * steps + t - 1) * H + head) * dh + col;
-        c_prev = a.c_all[p];
-        n_prev = a.n_all[p];
-        m_prev = a.m_all[p];
-      } else if (a.c0 != nullptr) {
-        c_prev = a.c0[sidx];
-        n_prev = a.n0[sidx];
-        m_prev = a.m0[sidx];
-      }
-      dh_up = a.dhs[(((size_t)b * steps + t) * H + head) * dh + col];
-      if (t == steps - 1) dh_up += dh_seed;
-    }
     float rec = 0.f;
-    if (s > 0) {
-      if constexpr (kChunk > 0) {
-        if (active)
-          load_chunk(v, rcol, gate_stride, dh, j_str, min(kChunk, nstr));
+    // step t's inputs landed long ago: wait for them here, and gate what
+    // needs no dh_t (the exponentials, the new state, both maxima's
+    // shares) while the peers' dpre is in flight; it waits in gate_s
+    const int st = s % kStages;
+    const float* in = ring + st * stage_elems + c;
+    auto at = [&](int run) {      // column c of the run in the stage
+      return in[run * run_elems +
+                (even ? 0 : (int)(run_start(a, run, t, b, head, col0) & 3))];
+    };
+    if (gater && t >= 0) {
+      mbar_wait(ring_bar + 8u * st, (s / kStages) & 1);
+      float pre[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) pre[g] = at(g);
+      float c_prev = init[c], n_prev = init[cols_pad + c];
+      float m_prev = init[2 * cols_pad + c];
+      if (t > 0) {
+        c_prev = at(4);
+        n_prev = at(5);
+        m_prev = at(6);
       }
+      const float av = log_sigmoid(pre[1]) + m_prev;
+      const float m_new = fmaxf(av, pre[0]);
+      const float i_eff = expf(pre[0] - m_new);
+      const float f_eff = expf(av - m_new);
+      const float z = tanhf(pre[2]);
+      const float u = f_eff * n_prev + i_eff;
+      float* kept = gate_s + ks * kGated * cols_pad + c;
+      kept[0] = i_eff;
+      kept[cols_pad] = f_eff;
+      kept[2 * cols_pad] = z;
+      kept[3 * cols_pad] = 1.f / (1.f + expf(-pre[3]));         // o
+      kept[4 * cols_pad] = f_eff * c_prev + i_eff * z;           // c_t
+      kept[5 * cols_pad] = fmaxf(u, 1e-6f);                      // n_t
+      kept[6 * cols_pad] = max_share(u, 1e-6f);
+      kept[7 * cols_pad] = max_share(av, pre[0]);                // m_t
+      kept[8 * cols_pad] = 1.f / (1.f + expf(pre[1]));           // sigma(-f~)
+    }
+    if (s > 0) {
       // dpre_{t+1} of every CTA lands in v_s[cur]: use number q / 2 of its
       // mbarrier, armed for 16 * dh bytes by one thread
       const int q = s - 1, cur = q & 1;
       const unsigned bar = bar_base + 8u * cur;
-      if (tid == 0) mbar_expect(bar, 16u * dh);
+      if (armer) mbar_expect(bar, 16u * dh);
+      if constexpr (kChunk > 0) {
+        if (pactive)
+          load_chunk(v, rcols, gate_stride, dh, j_str, min(kChunk, nstr),
+                     n_cols);
+      }
       mbar_wait(bar, (q >> 1) & 1);
 
       const float4* vp = v_s + cur * dh4;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      if (active) {
-        // register rows
+      float acc[kColsPer][4] = {};
+      if (pactive) {
+        // register rows: with no branch between them where the subslice
+        // fills them all, so the dpre loads can run ahead of the FMAs
+        auto reg_row = [&](int u) {
+          const float4 d = vp[jbeg + u];
 #pragma unroll
-        for (int u = 0; u < kRegRows; ++u) {
-          if (u < nreg) {
-            const float4 d = vp[jbeg + u];
-            fma4(acc, d, word_row<T>(rw[u / kPer][0], u % kPer),
-                 word_row<T>(rw[u / kPer][1], u % kPer),
-                 word_row<T>(rw[u / kPer][2], u % kPer),
-                 word_row<T>(rw[u / kPer][3], u % kPer));
+          for (int g = 0; g < 4; ++g) {
+            float r[kColsPer];
+#pragma unroll
+            for (int i = 0; i < kColsPer; ++i)
+              r[i] = word_row<T>(rw[u][g][i / kPer], i % kPer);
+            fma_row(acc, d, g, r);
           }
+        };
+        if (nreg == kRows) {
+#pragma unroll
+          for (int u = 0; u < kRows; ++u) reg_row(u);
+        } else {
+#pragma unroll
+          for (int u = 0; u < kRows; ++u)
+            if (u < nreg) reg_row(u);
         }
         // shared-memory rows
-#pragma unroll 4
+#pragma unroll 2
         for (int i = 0; i < nres; ++i) {
+          const float4 d = vp[j_res + i];
           const T* row = rs + (size_t)i * row_elems;
-          fma4(acc, vp[j_res + i], to_f32(row[0]), to_f32(row[cols_pad]),
-               to_f32(row[2 * cols_pad]), to_f32(row[3 * cols_pad]));
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            float r[kColsPer];
+            load4(row + g * cols_pad, r);
+            fma_row(acc, d, g, r);
+          }
         }
         // streamed rows, a chunk at a time
         if constexpr (kChunk > 0) for (int s0 = 0; s0 < nstr; s0 += kChunk) {
           if (s0 > 0)
-            load_chunk(v, rcol, gate_stride, dh, j_str + s0,
-                       min(kChunk, nstr - s0));
+            load_chunk(v, rcols, gate_stride, dh, j_str + s0,
+                       min(kChunk, nstr - s0), n_cols);
 #pragma unroll
           for (int u = 0; u < kChunk; ++u) {
-            if (s0 + u < nstr)
-              fma4(acc, vp[j_str + s0 + u], to_f32(v[u][0]), to_f32(v[u][1]),
-                   to_f32(v[u][2]), to_f32(v[u][3]));
+            if (s0 + u < nstr) {
+              const float4 d = vp[j_str + s0 + u];
+#pragma unroll
+              for (int g = 0; g < 4; ++g) {
+                float r[kColsPer];
+#pragma unroll
+                for (int i = 0; i < kColsPer; ++i) r[i] = to_f32(v[u][g][i]);
+                fma_row(acc, d, g, r);
+              }
+            }
           }
         }
       }
       // partial sums double-buffered: a thread may start the next product
       // while another of its CTA still gates this step
       float* pt = part + cur * part_elems;
-      pt[ks * cols_pad + c] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      float4 p =
+          make_float4((acc[0][0] + acc[0][1]) + (acc[0][2] + acc[0][3]),
+                      (acc[1][0] + acc[1][1]) + (acc[1][2] + acc[1][3]),
+                      (acc[2][0] + acc[2][1]) + (acc[2][2] + acc[2][3]),
+                      (acc[3][0] + acc[3][1]) + (acc[3][2] + acc[3][3]));
+      // subslices 2k and 2k + 1 sit n_groups lanes apart in one warp (a
+      // quarter-warp, or a half-warp in the 512-thread build): one shuffle
+      // adds them, and the even one's threads store the pair's sum
+      p.x += __shfl_xor_sync(0xffffffffu, p.x, n_groups);
+      p.y += __shfl_xor_sync(0xffffffffu, p.y, n_groups);
+      p.z += __shfl_xor_sync(0xffffffffu, p.z, n_groups);
+      p.w += __shfl_xor_sync(0xffffffffu, p.w, n_groups);
+      if ((sub & 1) == 0)
+        *reinterpret_cast<float4*>(pt + (sub >> 1) * cols_pad +
+                                   kColsPer * grp) = p;
       __syncthreads();
+      // the recurrence's share of dh_t: column c's 16 pair sums, in four
+      // runs of four, then the runs in pairs
       if (gater) {
+        float run[4];
 #pragma unroll
-        for (int sl = 0; sl < kSlices; ++sl) rec += pt[sl * cols_pad + c];
+        for (int r = 0; r < 4; ++r) {
+          run[r] = pt[(4 * r) * cols_pad + c];
+#pragma unroll
+          for (int m = 1; m < 4; ++m) run[r] += pt[(4 * r + m) * cols_pad + c];
+        }
+        rec = (run[0] + run[1]) + (run[2] + run[3]);
       }
+      // every gating thread read iteration s - 1's stage before the
+      // barrier: refill it with iteration s + kStages - 1's inputs
+      if (producer) fill(s + kStages - 1);
     }
 
     if (!gater) continue;
@@ -487,28 +715,32 @@ slstm_bwd_kernel(const Args a) {
       }
       continue;
     }
+    // the rest of the gating, from dh_t: what the gating before the
+    // exchange left in gate_s, and c, n of step t - 1 and dhs from the ring
+    const float* kept = gate_s + ks * kGated * cols_pad + c;
+    const float i_eff = kept[0], f_eff = kept[cols_pad];
+    const float z = kept[2 * cols_pad], o = kept[3 * cols_pad];
+    const float c_new = kept[4 * cols_pad], n_new = kept[5 * cols_pad];
+    const float u_share = kept[6 * cols_pad], share = kept[7 * cols_pad];
+    const float sig_f = kept[8 * cols_pad];
+    float c_prev = init[c], n_prev = init[cols_pad + c];
+    if (t > 0) {
+      c_prev = at(4);
+      n_prev = at(5);
+    }
+    float dh_up = at(7);
+    if (t == steps - 1) dh_up += init[3 * cols_pad + c];
     const float dhv = dh_up + rec;
-    const float av = log_sigmoid(pre[1]) + m_prev;
-    const float m_new = fmaxf(av, pre[0]);
-    const float i_eff = expf(pre[0] - m_new);
-    const float f_eff = expf(av - m_new);
-    const float z = tanhf(pre[2]);
-    const float o = 1.f / (1.f + expf(-pre[3]));
-    const float c_new = f_eff * c_prev + i_eff * z;
-    const float u = f_eff * n_prev + i_eff;
-    const float n_new = fmaxf(u, 1e-6f);
     // h = o c / n
     const float d_o = dhv * c_new / n_new;
     dc += dhv * o / n_new;
     dn -= dhv * o * c_new / (n_new * n_new);
-    const float du = dn * max_share(u, 1e-6f);
+    const float du = dn * u_share;
     const float e_i = (dc * z + du) * i_eff;       // through exp(i~ - m_t)
     const float e_f = (dc * c_prev + du * n_prev) * f_eff;   // exp(a - m_t)
     const float dmt = dm - e_i - e_f;
-    const float share = max_share(av, pre[0]);     // m_t = max(a, i~)
-    const float da = e_f + dmt * share;
-    const float4 d = make_float4(e_i + dmt * (1.f - share),
-                                 da * (1.f / (1.f + expf(pre[1]))),
+    const float da = e_f + dmt * share;            // m_t = max(a, i~)
+    const float4 d = make_float4(e_i + dmt * (1.f - share), da * sig_f,
                                  dc * i_eff * (1.f - z * z),
                                  d_o * o * (1.f - o));
     dc *= f_eff;
@@ -527,13 +759,15 @@ slstm_bwd_kernel(const Args a) {
 }
 
 // The instantiation for a dtype and a column count: 256 threads up to 32
-// columns a CTA (kRegWords words of each slice in registers, none
-// streamed), 512 up to 64 (no register rows, 8-row streamed chunks).
+// columns a CTA (kRegRows rows of each subslice in registers, none
+// streamed), 512 up to 64 (no register rows, rows streamed one at a time:
+// the 512-thread build has 128 registers a thread).
 template <typename T>
 void* kernel_fn(int cols) {
   return cols <= 32
-             ? reinterpret_cast<void*>(slstm_bwd_kernel<T, 256, kRegWords, 0>)
-             : reinterpret_cast<void*>(slstm_bwd_kernel<T, 512, 0, 8>);
+             ? reinterpret_cast<void*>(
+                   slstm_bwd_kernel<T, 256, kRegRows, 0>)
+             : reinterpret_cast<void*>(slstm_bwd_kernel<T, 512, 0, 1>);
 }
 
 void* kernel_for(int dtype, int cols) {
@@ -559,6 +793,10 @@ cudaLaunchConfig_t cluster_config(dim3 grid, int n_cta, int cols, int smem,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -600,7 +838,8 @@ extern "C" int slstm_scan_bwd_max_clusters(int dtype, int n_cta, int cols,
 // the zero state), the final state's gradient dh_T, dc_T, dn_T, dm_T
 // [B, H, dh] (all null for zero), outputs dpre [B, T, 4, H, dh] and dh0,
 // dc0, dn0, dm0 [B, H, dh]; all f32 but rt, contiguous on the current
-// device.  The plan: n_cta CTAs a cluster, cols state columns a CTA, rps
+// device; pre, c_all, n_all, m_all and dhs 16-byte aligned (the bulk
+// copies').  The plan: n_cta CTAs a cluster, cols state columns a CTA, rps
 // shared-memory rows a j slice, smem bytes of dynamic shared memory
 // (smem_bytes()).
 extern "C" int slstm_scan_bwd_launch(
@@ -618,6 +857,9 @@ extern "C" int slstm_scan_bwd_launch(
       dpre == nullptr || dh0 == nullptr || dc0 == nullptr ||
       dn0 == nullptr || dm0 == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (!aligned16(pre) || !aligned16(c_all) || !aligned16(n_all) ||
+      !aligned16(m_all) || !aligned16(dhs))
+    return (int)cudaErrorMisalignedAddress;
   const bool has_state = c0 != nullptr;
   if (has_state != (n0 != nullptr) || has_state != (m0 != nullptr))
     return (int)cudaErrorInvalidValue;
@@ -629,9 +871,8 @@ extern "C" int slstm_scan_bwd_launch(
   if (n_cta < 1 || n_cta > kMaxCluster || cols < 1 || cols > kMaxCols ||
       (long)n_cta * cols < dh || (long)(n_cta - 1) * cols >= dh)
     return (int)cudaErrorInvalidValue;
-  const int kc = (dh + kSlices - 1) / kSlices;
-  const int reg_rows = cols > 32 ? 0 : kRegWords * (dtype == 1 ? 2 : 1);
-  if (cols <= 32 && reg_rows + rps < kc)   // the 256-thread build streams none
+  const int kc = (dh + kSubs - 1) / kSubs;
+  if (cols <= 32 && kRegRows + rps < kc)   // the 256-thread build streams none
     return (int)cudaErrorInvalidValue;
   if (rps < 0 || rps > kc || smem > kMaxSmem ||
       (size_t)smem != smem_bytes(dh, cols, rps, dtype == 1 ? 2 : 4))

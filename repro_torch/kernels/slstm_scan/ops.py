@@ -40,8 +40,13 @@ MIN_COLS = 32               # columns a CTA owns before the cluster grows
 REG_ROWS = 32               # R rows a thread of the forward's 256-thread
                             # build keeps in registers, either dtype (none
                             # at 512)
-BWD_REG_WORDS = 16          # kRegWords of the backward's 256-thread build:
-                            # 32-bit words of R a gate (16 f32 rows, 32 bf16)
+BWD_SUBS = 32               # kSubs: the backward's j subslices
+BWD_REG_ROWS = 10           # kRegRows: rows of its subslice a thread of
+                            # the backward's 256-thread build keeps in
+                            # registers, either dtype
+BWD_STAGES = 8              # kStages: steps of inputs in the backward's ring
+BWD_RUNS = 8                # kRuns: pre's 4 gates, c, n, m, dhs a step
+BWD_GATED = 9               # kGated: values a gating thread keeps for dh_t
 
 # slstm_scan_launch: wx, r, bias, h0, c0, n0, m0, hs, h_out, c_out, n_out,
 # m_out, pre, c_all, n_all, m_all; B, T, H, dh, dtype, n_cta, cols, rps,
@@ -73,10 +78,11 @@ class ScanPlan(NamedTuple):
     smem_bytes: int                 # dynamic shared memory a CTA
 
 
-def slices(dh: int) -> list[tuple[int, int]]:
-    """The kernel's k slices [start, stop): they depend on dh alone."""
-    kc = -(-dh // SLICES)
-    return [(min(dh, s * kc), min(dh, s * kc + kc)) for s in range(SLICES)]
+def slices(dh: int, n: int = SLICES) -> list[tuple[int, int]]:
+    """The forward's k slices [start, stop) (the backward's j subslices
+    with ``n=BWD_SUBS``): they depend on dh alone."""
+    kc = -(-dh // n)
+    return [(min(dh, s * kc), min(dh, s * kc + kc)) for s in range(n)]
 
 
 def smem_bytes(dh: int, cols: int, rps: int, elem: int) -> int:
@@ -88,12 +94,19 @@ def smem_bytes(dh: int, cols: int, rps: int, elem: int) -> int:
 
 
 def bwd_smem_bytes(dh: int, cols: int, rps: int, elem: int) -> int:
-    """The backward's: two mbarriers, the four gate gradients of every
-    column [2][dh][4] and two sets of one partial sum a slice and column in
-    f32, then R's shared-memory rows (``smem_bytes`` in the backward)."""
+    """The backward's: the mbarriers (two of the exchange and one a ring
+    stage, padded to 16 bytes), the four gate gradients of every column
+    [2][dh][4], two sets of one partial sum a subslice pair and column, the
+    ring of step inputs [stages][runs][cols + 4], the initial state with
+    dh's seed [4][cols] and the gating threads' values for dh_t
+    [4][gated][cols], in f32, then R^T's shared-memory rows, ``rps`` a
+    subslice (``smem_bytes`` in the backward)."""
     cp = -(-cols // 32) * 32
-    return (16 + 2 * (-(-dh // 4) * 4) * 16 + 2 * SLICES * cp * 4
-            + SLICES * rps * 4 * cp * elem)
+    bars = -(-(2 + BWD_STAGES) * 8 // 16) * 16
+    return (bars + 2 * (-(-dh // 4) * 4) * 16 + BWD_SUBS * cp * 4
+            + BWD_STAGES * BWD_RUNS * (cp + 4) * 4 + 4 * cp * 4
+            + 4 * BWD_GATED * cp * 4
+            + BWD_SUBS * rps * 4 * cp * elem)
 
 
 @functools.lru_cache(maxsize=256)
@@ -103,14 +116,15 @@ def plan_scan(b: int, t: int, heads: int, dh: int, dtype: torch.dtype,
     """Columns split over ``n_cta`` CTAs: by default one CTA per
     ``MIN_COLS`` columns, at most ``MAX_CLUSTER`` (16 at dh=512: 32 columns
     each), none left empty.  Each k slice keeps its first rows in registers
-    (where a CTA has 32 columns or fewer: 32 in the forward, 16 f32 or 32
-    bf16 in the backward) and as many of the next ones in shared memory as
-    fit, copied in once a call (at T=1 that is the one read, all in flight
-    at once); the rest are read from memory every step.
+    (where a CTA has 32 columns or fewer: 32 in the forward) and as many of
+    the next ones in shared memory as fit, copied in once a call (at T=1
+    that is the one read, all in flight at once); the rest are read from
+    memory every step.
     ``n_cta`` overrides the cluster size (the results do not depend on
-    it); ``backward`` plans the backward kernel, whose k runs over R's
-    columns (it reads R transposed) and whose shared memory holds four
-    floats a column where the forward holds h."""
+    it); ``backward`` plans the backward kernel, whose sums run over R's
+    columns j (it reads R transposed) in ``BWD_SUBS`` subslices (10 rows of
+    each in registers), and whose shared memory holds four floats a column
+    where the forward holds h, and the ring of step inputs."""
     if not 1 <= dh <= MAX_DH:
         raise ValueError(f"{NAME}: head dim {dh} outside 1..{MAX_DH}")
     if n_cta is None:
@@ -123,15 +137,16 @@ def plan_scan(b: int, t: int, heads: int, dh: int, dtype: torch.dtype,
                          "columns, none empty)")
     elem = torch.finfo(dtype).bits // 8
     cp = -(-cols // 32) * 32
-    kc = -(-dh // SLICES)
+    n = BWD_SUBS if backward else SLICES
+    kc = -(-dh // n)
     smem = bwd_smem_bytes if backward else smem_bytes
     reg = 0
     if cp == 32:
-        reg = BWD_REG_WORDS * (4 // elem) if backward else REG_ROWS
+        reg = BWD_REG_ROWS if backward else REG_ROWS
     fixed = smem(dh, cols, 0, elem)
-    rps = min(max(0, kc - reg), (SMEM_LIMIT - fixed)
-              // (SLICES * 4 * cp * elem))
-    resident = sum(min(reg + rps, stop - start) for start, stop in slices(dh))
+    rps = min(max(0, kc - reg), (SMEM_LIMIT - fixed) // (n * 4 * cp * elem))
+    resident = sum(min(reg + rps, stop - start)
+                   for start, stop in slices(dh, n))
     return ScanPlan(n_cta, cols, SLICES * cp, (n_cta, heads, b), reg, rps,
                     resident, dh - resident, smem(dh, cols, rps, elem))
 
@@ -292,6 +307,9 @@ def slstm_scan_bwd(
                    and all(x.shape == (bsz, heads, dh)
                            for x in (*ins, *seeds))),
         head_dim=dh, max_head_dim=MAX_DH)
+    # the kernel's bulk copies read these from 16-byte bounds
+    pre, cs, ns, ms, dhs = (x if x.data_ptr() % 16 == 0 else x.clone()
+                            for x in (pre, cs, ns, ms, dhs))
     plan = plan_scan(bsz, t, heads, dh, r.dtype, n_cta, backward=True)
     max_active_clusters(plan, r.dtype, dev, backward=True)
     dpre = _f32(dev, bsz, t, 4, heads, dh)
@@ -300,7 +318,8 @@ def slstm_scan_bwd(
     seed_ptrs = [x.data_ptr() for x in seeds] if seeds else [None] * 4
     with torch.cuda.device(dev):
         err = _lib()[1](
-            rt.data_ptr(), *(x.data_ptr() for x in saved), *in_ptrs,
+            rt.data_ptr(), *(x.data_ptr() for x in (pre, cs, ns, ms)),
+            *in_ptrs,
             dhs.data_ptr(), *seed_ptrs, dpre.data_ptr(),
             *(x.data_ptr() for x in d0), bsz, t, heads, dh,
             _build.DTYPE_CODES[r.dtype], plan.n_cta, plan.cols,
