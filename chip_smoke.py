@@ -128,6 +128,7 @@ import gc
 import json
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -137,6 +138,7 @@ from dataclasses import replace
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -168,7 +170,11 @@ from repro_torch.kernels.slstm_scan import (slstm_scan, slstm_scan_bwd,
                                             slstm_scan_ref,
                                             slstm_scan_saving,
                                             slstm_scan_saving_ref)
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
+from repro_torch.models import sharding as S
+from repro_torch.models.head_padding import pad_attn_params, \
+    pad_heads_config
 from repro_torch.models.config import StageDef
 from repro_torch.models.layers import attention as A
 from repro_torch.models.layers import ffn as FF
@@ -1382,38 +1388,11 @@ def _launches() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def phase_serve(arch: str, keep, cpu_cut) -> dict[str, int]:
-    """Serve the request mix on ``arch`` at full width (its decoder cut to
-    ``keep`` where given, see :func:`_cut`); returns each kernel's launches
-    in the engine run.  The cost model's own weights are freed before the
-    served ones are made."""
-    cfg = _cut(get_config(arch), keep)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    cost = measure_cost_model(cfg, prompt_len=PROMPT_LEN,
-                              cache_len=CACHE_LEN, reps=3, device="cuda")
-    print(f"[serve] {arch} cost model in {time.perf_counter() - t0:.2f} s: "
-          f"prefill {cost.prefill[1]}, decode {cost.decode}")
-    gc.collect()                        # the cost model's own weights
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, 0, device="cuda")
-    n_params = sum(t.numel() for t in _leaves(params))
-    torch.cuda.synchronize()
-    print(f"[serve] {arch}: {cfg.n_layers} layers"
-          f"{_cut_note(arch, cfg, keep)} d={cfg.d_model} H={cfg.n_heads} "
-          f"KV={cfg.n_kv_heads} D={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
-          f"vocab={cfg.padded_vocab}, {n_params} params "
-          f"({_nbytes(*_leaves(params)) / 1e9:.2f} GB, {cfg.param_dtype}) "
-          f"initialised in {time.perf_counter() - t0:.2f} s")
-    _check_params(arch, n_params)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(2)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN),
-                                     generator=gen, device="cuda")}
-    _step_device_times("[serve]", cfg, params, cost, batch, CACHE_LEN,
-                       PROMPT_LEN)
-    _counters_at_rest(f"{arch} step replays")
+def _engine_run(cfg, params, cost) -> tuple:
+    """The request mix (``N_REQUESTS``, 2:1 HP:LP, prompts from seed 1)
+    through ``PreemptiveServingEngine`` with 4 slices x 4 units on
+    ``params``, its slots from ``cost`` -> (requests, metrics, each
+    kernel's launches, prefills, decode tokens, wall s)."""
     net = engine_network_config(cost, LP_TOKENS)
     eng = PreemptiveServingEngine(cfg, params, cost, device="cuda",
                                   n_slices=4, units_per_slice=4,
@@ -1446,8 +1425,43 @@ def phase_serve(arch: str, keep, cpu_cut) -> dict[str, int]:
     m = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _launches()
+    return reqs, m, _launches(), prefills[0], tokens[0], wall
 
+
+def phase_serve(arch: str, keep, cpu_cut) -> dict[str, int]:
+    """Serve the request mix on ``arch`` at full width (its decoder cut to
+    ``keep`` where given, see :func:`_cut`); returns each kernel's launches
+    in the engine run.  The cost model's own weights are freed before the
+    served ones are made."""
+    cfg = _cut(get_config(arch), keep)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cost = measure_cost_model(cfg, prompt_len=PROMPT_LEN,
+                              cache_len=CACHE_LEN, reps=3, device="cuda")
+    print(f"[serve] {arch} cost model in {time.perf_counter() - t0:.2f} s: "
+          f"prefill {cost.prefill[1]}, decode {cost.decode}")
+    gc.collect()                        # the cost model's own weights
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    print(f"[serve] {arch}: {cfg.n_layers} layers"
+          f"{_cut_note(arch, cfg, keep)} d={cfg.d_model} H={cfg.n_heads} "
+          f"KV={cfg.n_kv_heads} D={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.padded_vocab}, {n_params} params "
+          f"({_nbytes(*_leaves(params)) / 1e9:.2f} GB, {cfg.param_dtype}) "
+          f"initialised in {time.perf_counter() - t0:.2f} s")
+    _check_params(arch, n_params)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN),
+                                     generator=gen, device="cuda")}
+    _step_device_times("[serve]", cfg, params, cost, batch, CACHE_LEN,
+                       PROMPT_LEN)
+    _counters_at_rest(f"{arch} step replays")
+    reqs, m, launches, prefills, tokens, wall = _engine_run(cfg, params,
+                                                            cost)
     hp_reqs = [r for r in reqs if r.priority == Priority.HIGH]
     lp_done = [r for r in reqs
                if r.priority == Priority.LOW and r.state == "done"]
@@ -1458,7 +1472,7 @@ def phase_serve(arch: str, keep, cpu_cut) -> dict[str, int]:
           f"reallocations, {m.lp_offloaded} LP offloaded")
     print(f"[serve] {arch} summary " + json.dumps(m.summary(), default=str))
     print(f"[serve] {arch} kernel launches in the engine run "
-          f"({prefills[0]} prefills, {tokens[0]} decode tokens): "
+          f"({prefills} prefills, {tokens} decode tokens): "
           + ", ".join(f"{k}={v}" for k, v in launches.items()))
     _peak_memory("[serve]", arch, "cost model, init, steps and engine run")
     bad_hp = [(r.rid, r.state) for r in hp_reqs if r.state != "done"]
@@ -1471,7 +1485,7 @@ def phase_serve(arch: str, keep, cpu_cut) -> dict[str, int]:
     for r in reqs:
         if not all(0 <= t < cfg.vocab_size for t in r.tokens_out):
             raise AssertionError(f"request {r.rid}: token out of range")
-    want = _expected_launches(cfg, prefills[0], tokens[0])
+    want = _expected_launches(cfg, prefills, tokens)
     if launches != want or not any(launches.values()):
         raise AssertionError(f"kernel launches {launches}, expected {want}")
 
@@ -2359,6 +2373,335 @@ def _decode_from(cfg, params: dict, batch: dict) -> None:
     _reset_from(before)
 
 
+# --------------------------------------------------------------------------- #
+# Phase 7: head padding                                                       #
+# --------------------------------------------------------------------------- #
+
+
+PAD_ARCH = "qwen2-0.5b"
+PAD_MULTIPLES = (8, 16)               # 14/2 heads -> 16/8 (G=2), 16/16 (G=1)
+
+
+def _outcomes(reqs) -> list:
+    """Each request's final state and tokens, in submission order (request
+    ids run on across engines)."""
+    return [(r.state, list(r.tokens_out)) for r in reqs]
+
+
+def _serving_ms(cfg, params, batch: dict) -> tuple[float, float]:
+    """Device ms of one prefill of ``batch`` and one decode step after it
+    (CUDA-graph replay)."""
+    pre = make_prefill_step(cfg, CACHE_LEN, device="cuda")
+    srv = make_serve_step(cfg, device="cuda")
+    nxt, caches = pre(params, batch)
+    last = nxt[:, None]
+    return (device_ms(lambda: pre(params, batch), calls=3, reps=3),
+            device_ms(lambda: srv(params, caches, last, PROMPT_LEN),
+                      calls=3, reps=3))
+
+
+def phase_pad() -> None:
+    """Full-width qwen2-0.5b with its heads padded (``pad_heads_config``,
+    weights from ``pad_attn_params`` of the unpadded ones) to multiples of
+    8 and 16, served through the engine: both attention kernels run at
+    the padded heads, the logits stay within the card tolerance of the
+    unpadded model's, the request mix's outcomes are the unpadded run's
+    (the same cost model sets the slots of both), and each kernel launches
+    as often."""
+    cfg = get_config(PAD_ARCH)
+    cost = measure_cost_model(cfg, prompt_len=PROMPT_LEN,
+                              cache_len=CACHE_LEN, reps=3, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = M.init_params(cfg, 0, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN),
+                                     generator=gen, device="cuda")}
+    decode = torch.randint(0, cfg.vocab_size, (1, MODEL_TOKENS),
+                           generator=gen, device="cuda")
+    with torch.inference_mode():
+        want = _logits(cfg, params, batch, "cuda", decode=decode)
+    base_ms = _serving_ms(cfg, params, batch)
+    reqs, _, base_launches, prefills, tokens, _ = _engine_run(cfg, params,
+                                                             cost)
+    base = _outcomes(reqs)
+    print(f"[pad] {cfg.name} unpadded H={cfg.n_heads} KV={cfg.n_kv_heads}: "
+          f"{sum(r.state == 'done' for r in reqs)}/{len(reqs)} requests "
+          f"done; prefill {base_ms[0]:.5f} ms, decode {base_ms[1]:.5f} ms "
+          "(device, graph replay)")
+    for mult in PAD_MULTIPLES:
+        cfg_p = pad_heads_config(cfg, mult)
+        params_p = pad_attn_params(params, cfg, cfg_p)
+        g = cfg_p.n_heads // cfg_p.n_kv_heads
+        label = (f"{cfg.name} padded to {mult} (H={cfg_p.n_heads} "
+                 f"KV={cfg_p.n_kv_heads} G={g})")
+        with torch.inference_mode():
+            got = _logits(cfg_p, params_p, batch, "cuda", decode=decode)
+        _compare_logits("[pad]", f"{label} vs unpadded", got, want)
+        ms = _serving_ms(cfg_p, params_p, batch)
+        reqs, _, launches, n_pre, n_tok, wall = _engine_run(cfg_p, params_p,
+                                                            cost)
+        expected = _expected_launches(cfg_p, n_pre, n_tok)
+        print(f"[pad] {label}: engine run {wall:.2f} s wall, "
+              f"{sum(r.state == 'done' for r in reqs)}/{len(reqs)} requests "
+              f"done; launches " + ", ".join(
+                  f"{k}={v}" for k, v in launches.items() if v)
+              + f"; prefill {ms[0]:.5f} ms ({ms[0] / base_ms[0]:.3f}x "
+              f"unpadded), decode {ms[1]:.5f} ms ({ms[1] / base_ms[1]:.3f}x)"
+              " (device, graph replay)")
+        diff = [(i, got, want) for i, (got, want) in
+                enumerate(zip(_outcomes(reqs), base)) if got != want]
+        if diff:
+            raise AssertionError(f"{label}: request outcomes differ from "
+                                 f"the unpadded run's at {diff[:3]}")
+        if launches != expected or launches != base_launches or \
+                (n_pre, n_tok) != (prefills, tokens):
+            raise AssertionError(f"{label}: launches {launches}, expected "
+                                 f"{expected} (unpadded {base_launches})")
+        del params_p
+    _peak_memory("[pad]", cfg.name, "unpadded and padded weights, engine "
+                 "runs")
+
+
+# --------------------------------------------------------------------------- #
+# Phase 8: the DTensor path on a one-card mesh                                #
+# --------------------------------------------------------------------------- #
+
+
+SHARD_ARCH = "qwen2-0.5b"
+SHARD_TRAIN_T = 1024
+SHARD_STEP_TOL = 1e-2       # params after a step, of each leaf's max |x|
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _diff(label: str, got, want, tol: float) -> None:
+    """Print whether ``got`` (DTensors) and ``want`` are bit-identical,
+    else their largest difference relative to ``want``'s largest |x|;
+    raise above ``tol``."""
+    worst, where = 0.0, ""
+    same = True
+    for (name, g), (_, w) in zip(got, want, strict=True):
+        g = g.full_tensor() if hasattr(g, "full_tensor") else g
+        same &= torch.equal(g, w)
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"[shard] {label}: {name} not finite")
+        rel = (g.float() - w.float()).abs().max().item() / max(
+            w.float().abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, where = rel, name
+    print(f"[shard] {label}: " + ("bit-identical" if same else
+          f"largest max|diff| / max|x| {worst:.3g} at {where}")
+          + f" ({len(want)} tensors; tol {tol:g})")
+    if worst > tol:
+        raise AssertionError(f"[shard] {label} differs by {worst:.3g}")
+
+
+def _sharded_serving(cfg, params, mesh, batch: dict, decode) -> tuple:
+    """One prefill and a decode step per token of ``decode`` on the
+    params as DTensors (the dry run's rules, its cache rules): the logits
+    of each, and the greedy tokens of the prefill and serve steps."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with torch.inference_mode():
+        dparams = S.distribute_tree(params, M.params_axes(cfg), mesh)
+        rules = S.cache_batch_rules(mesh, 1, prefer_seq_shard=True)
+        caches = S.distribute_tree(
+            M.init_caches(cfg, 1, CACHE_LEN, device="cuda"),
+            M.caches_axes(cfg), mesh, rules)
+        tok = S.distribute(batch["tokens"], ("data", None), mesh)
+        dec = S.distribute(decode, ("data", None), mesh)
+        with implicit_replication():
+            pre, caches = M.prefill(dparams, cfg, {"tokens": tok},
+                                    CACHE_LEN, caches=caches)
+            logits = [pre]
+            for i in range(decode.shape[1]):
+                out, _ = M.decode_step(dparams, cfg, caches,
+                                       dec[:, i:i + 1], PROMPT_LEN + i)
+                logits.append(out)
+            pre_step = make_prefill_step(cfg, CACHE_LEN, device="cuda")
+            step_tok, caches = pre_step(
+                dparams, {"tokens": tok},
+                S.distribute_tree(M.init_caches(cfg, 1, CACHE_LEN,
+                                                device="cuda"),
+                                  M.caches_axes(cfg), mesh, rules))
+            srv = make_serve_step(cfg, device="cuda")
+            toks = [step_tok]
+            for i in range(decode.shape[1]):
+                nxt, caches = srv(dparams, caches, dec[:, i:i + 1],
+                                  PROMPT_LEN + i)
+                toks.append(nxt[:, 0])
+    return [x.full_tensor().float() for x in logits], \
+        [int(t.full_tensor()[0]) for t in toks]
+
+
+def phase_shard() -> None:
+    """Full-width qwen2-0.5b on DTensors over a real one-card mesh (NCCL,
+    world size 1, (1, 1) over ("data", "model")), placed by the sharding
+    rules: one prefill and 8 decode tokens, then one train step at
+    T=1024, each through the hand-written kernels and held against the
+    plain tensors' run."""
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh()
+        cfg = get_config(SHARD_ARCH)
+        print(f"[shard] {cfg.name} on {mesh}: params placed by the rules "
+              "(FSDP gathers, vocab-parallel embedding and loss, kernels "
+              "through local_map)")
+        params = M.init_params(cfg, 0, device="cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(2)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, PROMPT_LEN),
+                                         generator=gen, device="cuda")}
+        decode = torch.randint(0, cfg.vocab_size, (1, MODEL_TOKENS),
+                               generator=gen, device="cuda")
+        with torch.inference_mode():
+            want = [x.cuda() for x in _logits(cfg, params, batch, "cuda",
+                                               decode=decode)]
+            pre = make_prefill_step(cfg, CACHE_LEN, device="cuda")
+            srv = make_serve_step(cfg, device="cuda")
+            nxt, caches = pre(params, batch)
+            plain_toks = [int(nxt[0])]
+            for i in range(MODEL_TOKENS):
+                nxt, caches = srv(params, caches, decode[:, i:i + 1],
+                                  PROMPT_LEN + i)
+                plain_toks.append(int(nxt[0, 0]))
+        _reset_launches()
+        got, toks = _sharded_serving(cfg, params, mesh, batch, decode)
+        torch.cuda.synchronize()
+        launches = _launches()
+        print("[shard] serving on DTensors: launches " + ", ".join(
+            f"{k}={v}" for k, v in launches.items() if v))
+        if not launches["flash_attention"] or \
+                not launches["decode_attention"]:
+            raise AssertionError(f"[shard] serving launches {launches}")
+        names = ["prefill"] + [f"decode {i + 1}" for i in
+                               range(MODEL_TOKENS)]
+        _diff("logits, DTensors vs plain tensors", list(zip(names, got)),
+              list(zip(names, want)), LOGIT_TOL)
+        print(f"[shard] greedy tokens: DTensors {toks}, plain {plain_toks}")
+        if toks != plain_toks:
+            raise AssertionError("[shard] greedy tokens differ")
+        del params, caches
+        _shard_train(cfg, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _shard_train(cfg, mesh) -> None:
+    """One AdamW step at T=SHARD_TRAIN_T on DTensors (params, moments and
+    batch placed by the rules) against the same step on plain tensors:
+    loss, every gradient, the updated params."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    batch = next(train_batches(cfg, InputShape("shard", SHARD_TRAIN_T, 1,
+                                               "train")))
+    batch = {k: torch.as_tensor(v).long().cuda() for k, v in batch.items()}
+    params, opt_state = init_train_state(cfg, 0, TRAIN_OPT, device="cuda")
+    names = list(_leaf_names(params))
+    loss, _, grads = loss_and_grads(params, cfg, batch)
+    step = make_train_step(cfg, TRAIN_OPT, device="cuda")
+    params, opt_state, metrics = step(params, opt_state, batch)
+    want = {"loss": loss, "grads": list(tree_leaves(grads)),
+            "params": [p.detach() for p in tree_leaves(params)],
+            "grad_norm": metrics["grad_norm"]}
+    del params, opt_state, grads
+    gc.collect()
+    dparams, dopt = init_train_state(cfg, 0, TRAIN_OPT, device="cuda")
+    axes = M.params_axes(cfg)
+    dparams = S.distribute_tree(dparams, axes, mesh)
+    dopt = {"m": S.distribute_tree(dopt["m"], axes, mesh),
+            "v": S.distribute_tree(dopt["v"], axes, mesh),
+            "step": S.distribute(dopt["step"], (), mesh)}
+    dbatch = {k: S.distribute(v, ("data", None), mesh)
+              for k, v in batch.items()}
+    _reset_launches()
+    t0 = time.perf_counter()
+    with implicit_replication():
+        dloss, _, dgrads = loss_and_grads(dparams, cfg, dbatch)
+        dparams, dopt, dmetrics = step(dparams, dopt, dbatch)
+    torch.cuda.synchronize()
+    launches = _launches()
+    print(f"[shard] train at T={SHARD_TRAIN_T} on DTensors (gradients, "
+          f"then one AdamW step) in {time.perf_counter() - t0:.2f} s: "
+          "launches " + ", ".join(f"{k}={v}" for k, v in launches.items()
+                                  if v))
+    if launches != {k: 2 * v for k, v in
+                    _expected_train_launches(cfg, 1).items()}:
+        raise AssertionError(f"[shard] train launches {launches}")
+    print(f"[shard] loss: DTensors {dloss.full_tensor().item():.7f}, plain "
+          f"{want['loss'].item():.7f}; grad_norm "
+          f"{dmetrics['grad_norm'].full_tensor().item():.7f} vs "
+          f"{want['grad_norm'].item():.7f}")
+    _diff("loss", [("loss", dloss)], [("loss", want["loss"])], 1e-5)
+    _diff("gradients, DTensors vs plain tensors",
+          list(zip(names, tree_leaves(dgrads))),
+          list(zip(names, want["grads"])), TRAIN_GRAD_TOL)
+    # AdamW divides each gradient by its own root mean square: where |g|
+    # is near eps (the zero-initialised biases) the gradients' 1e-6
+    # relative rounding moves the update by up to about 1 % of lr
+    _diff("params after the step, DTensors vs plain tensors",
+          list(zip(names, (p.detach() for p in tree_leaves(dparams)))),
+          list(zip(names, want["params"])), SHARD_STEP_TOL)
+    _peak_memory("[shard]", cfg.name, "plain and DTensor runs")
+
+
+# --------------------------------------------------------------------------- #
+# Phase 9: the dry run                                                        #
+# --------------------------------------------------------------------------- #
+
+
+# (dry-run arguments) run in turn: every step kind and both meshes
+DRYRUN_SUBSET = (("--arch", "qwen2-0.5b"),
+                 ("--arch", "xlstm-1.3b", "--shape", "train_4k"),
+                 ("--arch", "deepseek-v3-671b", "--shape", "decode_32k",
+                  "--multi-pod"))
+DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun_smoke.jsonl"
+
+
+def phase_dryrun() -> None:
+    """``python -m repro_torch.launch.dryrun`` over a subset that covers
+    each step kind and both production meshes, each as a subprocess (its
+    ``fake`` process group never meets this process's); fails if any
+    combo fails."""
+    DRYRUN_OUT.parent.mkdir(parents=True, exist_ok=True)
+    DRYRUN_OUT.unlink(missing_ok=True)
+    for args in DRYRUN_SUBSET:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--out", str(DRYRUN_OUT)], cwd=Path(__file__).resolve().parent,
+            capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            if line.startswith("[dryrun]"):
+                print(line)
+        print(f"[dryrun] {' '.join(args)}: exit {proc.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        if proc.returncode != 0:
+            raise AssertionError(f"dry run {args} failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+    for line in DRYRUN_OUT.read_text().splitlines():
+        rec = json.loads(line)
+        roof = rec["roofline"]
+        print(f"[dryrun] {rec['arch']} {rec['shape']} {rec['mesh']}: "
+              f"per device {rec['argument_size_in_bytes']} argument bytes, "
+              f"{rec['output_size_in_bytes']} output, peak live "
+              f"{rec['argument_size_in_bytes'] + rec['temp_size_in_bytes']}"
+              f"; {roof['flops_per_device']:.4g} FLOPs, "
+              f"{roof['hbm_bytes_per_device']:.4g} bytes, "
+              f"{roof['collective_bytes_per_device']:.4g} wire bytes in "
+              f"{roof['n_collectives']} collectives "
+              f"{json.dumps(roof['collectives_by_kind'])}; bottleneck "
+              f"{roof['bottleneck']}; kernels {json.dumps(rec['kernels'])}")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2402,6 +2745,14 @@ def main() -> int:
     t1 = time.perf_counter()
     launches["slstm_scan_bwd"] = phase_train_xlstm()["slstm_scan_bwd"]
     print(f"[time] train {XLSTM_ARCH}: {time.perf_counter() - t1:.1f} s")
+    for name, phase in (("pad", phase_pad), ("shard", phase_shard),
+                        ("dryrun", phase_dryrun)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()    # each phase's own peak
+        t1 = time.perf_counter()
+        phase()
+        print(f"[time] {name}: {time.perf_counter() - t1:.1f} s")
     print(f"[time] total: {time.perf_counter() - t0:.1f} s")
     kernels = [dict({"launches": launches.get(name, 0)}, **rows[name])
                for name in sorted(rows)]

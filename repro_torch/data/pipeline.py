@@ -1,7 +1,8 @@
 """Synthetic data pipeline: deterministic numpy token/embedding batch
 streams for training loops (port of the JAX package's
-``data/pipeline.py``; the same arrays for the same seed).  Its
-``input_specs`` serves the dry run, which the port does not have yet.
+``data/pipeline.py``; the same arrays for the same seed), and
+``input_specs``: the shapes and dtypes of every input of a step kind, for
+the dry run (``launch/build.py``).
 """
 from __future__ import annotations
 
@@ -9,7 +10,9 @@ from dataclasses import dataclass
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
+from ..checkpoint.store import ShapeDtype
 from ..configs.shapes import InputShape
 from ..models.config import ModelConfig
 
@@ -67,3 +70,24 @@ def train_batches(
             batch["modality_emb"] = rng.standard_normal(
                 (b, s_mod, cfg.modality_embed_dim), dtype=np.float32)
         yield batch
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """``ShapeDtype`` stand-ins (torch dtypes) for every input of the step
+    kind, as the JAX ``input_specs`` gives ``ShapeDtypeStruct``s: tokens
+    (and labels to train, a modality model's embeddings in the activation
+    dtype) for a full-sequence step; ONE token and the position scalar to
+    decode (the caches are built separately)."""
+    b = shape.global_batch
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        t = text_len(cfg, shape)
+        spec = {"tokens": ShapeDtype((b, t), i32)}
+        if shape.kind == "train":
+            spec["labels"] = ShapeDtype((b, t), i32)
+        if cfg.modality_embed_dim:
+            spec["modality_emb"] = ShapeDtype(
+                (b, _modality_len(cfg, shape), cfg.modality_embed_dim),
+                getattr(torch, cfg.activation_dtype))
+        return spec
+    return {"token": ShapeDtype((b, 1), i32), "pos": ShapeDtype((), i32)}

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import _build
+from .. import _build, _shard
 from .ref import decode_attention_ref
 
 NAME = "decode_attention"
@@ -93,13 +93,27 @@ def decode_attention(
     *,
     window: int = 0,
 ) -> torch.Tensor:
-    """One-token GQA attention over a position-tracked cache -> [B, H, D]."""
+    """One-token GQA attention over a position-tracked cache -> [B, H, D].
+    DTensor inputs run on each device's shards (``_shard.local_call``:
+    batch and whole GQA groups may stay sharded, the cache's slots are
+    gathered); meta tensors launch nothing (the dry run: an empty output,
+    the work reported for a cache filled up to ``pos``)."""
+    if _shard.is_dtensor(q) or _shard.is_dtensor(k_cache):
+        return _shard.local_call(
+            functools.partial(decode_attention, pos=pos, window=window),
+            (q, k_cache, v_cache, positions),
+            ((0, 1), (0, 2), (0, 2), (0, None)), ((0, 1),))
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, positions, pos,
                                     window=window)
     _build.refuse_grad(NAME, q, k_cache, v_cache)
     b, h, d = q.shape
     _, s, kv, _ = k_cache.shape
+    if q.device.type == "meta":
+        valid = b * min(pos + 1, s, window if window > 0 else s)
+        _shard.meta_launch(NAME, 4.0 * h * d * valid, _shard.nbytes(
+            q, positions, q) + 2 * valid * kv * d * k_cache.element_size())
+        return torch.empty_like(q)
     _build.check_inputs(
         NAME, (q, k_cache, v_cache), (positions,),
         shapes_ok=(k_cache.shape == (b, s, kv, d)

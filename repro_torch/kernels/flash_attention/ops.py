@@ -32,7 +32,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from .. import _build
+from .. import _build, _shard
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 NAME = "flash_attention"
@@ -236,15 +236,40 @@ def _set_limits(device: torch.device) -> None:
     _set_up.add(idx)
 
 
+def n_pairs(t: int, s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that attend, for T queries at the last T of S
+    key positions 0..S-1 (a prompt or a training sequence over itself):
+    all T x S unmasked."""
+    if not causal:
+        return t * s
+    lo = s - t + 1                  # keys the first query sees, unwindowed
+    w = window if window > 0 else s
+    top = min(s, w)
+    under = (top * (top + 1) - (lo - 1) * lo) // 2 if top >= lo else 0
+    return under + max(0, s - max(lo - 1, w)) * w
+
+
+# (batch dim, head dim) of q, k, v, the positions and the output, for the
+# kernels' rule under DTensor (``_shard.local_call``)
+_QKV_DIMS = ((0, 2), (0, 2), (0, 2), None, None)
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
              window: int) -> torch.Tensor:
-    """The plain version for CPU tensors; else one launch of the kernel."""
+    """The plain version for CPU tensors; on meta tensors no launch (the
+    dry run: an empty output, the work reported); else one launch of the
+    kernel."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, q_pos, k_pos, causal=causal,
                                    window=window)
     b, t, h, d = q.shape
     _, s, kv, _ = k.shape
+    if q.device.type == "meta":
+        pairs = b * n_pairs(t, s, causal, window)
+        _shard.meta_launch(NAME, 4.0 * h * d * pairs,
+                           _shard.nbytes(q, k, v, q_pos, k_pos, q))
+        return torch.empty_like(q)
     _build.check_inputs(
         NAME, (q, k, v), (q_pos, k_pos),
         shapes_ok=(k.shape == (b, s, kv, d) and v.shape == k.shape
@@ -301,7 +326,12 @@ def flash_attention(
 ) -> torch.Tensor:
     """Full-sequence GQA attention in the model's layout -> [B, T, H, D];
     differentiable through :class:`FlashAttentionFn` where an input
-    requires grad."""
+    requires grad.  DTensor inputs run on each device's shards
+    (``_shard.local_call``: batch and whole GQA groups may stay sharded)."""
+    if _shard.is_dtensor(q) or _shard.is_dtensor(k):
+        return _shard.local_call(
+            functools.partial(flash_attention, causal=causal, window=window),
+            (q, k, v, q_pos, k_pos), _QKV_DIMS, ((0, 2),))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, q_pos, k_pos, bool(causal),
@@ -437,13 +467,20 @@ def flash_attention_bwd(
     window: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention`: the plain version for CPU
-    tensors; else the three launches of the backward kernel (row
+    tensors; on meta tensors no launch (empty gradients, the work
+    reported); else the three launches of the backward kernel (row
     statistics, dK/dV, dQ) into fresh outputs of the inputs' dtype."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, q_pos, k_pos, out, d_out,
                                        causal=causal, window=window)
     b, t, h, d = q.shape
     _, s, kv, _ = k.shape
+    if q.device.type == "meta":
+        pairs = b * n_pairs(t, s, causal, window)
+        _shard.meta_launch("flash_attention_bwd", 10.0 * h * d * pairs,
+                           _shard.nbytes(q, k, v, q_pos, k_pos, out, d_out,
+                                         q, k, v))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _build.check_inputs(
         NAME, (q, k, v, out, d_out), (q_pos, k_pos),
         shapes_ok=(k.shape == (b, s, kv, d) and v.shape == k.shape

@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from .. import _build
+from .. import _build, _shard
 from .ref import (State, Saved, param_grads, slstm_scan_bwd_ref,
                   slstm_scan_ref, slstm_scan_saving_ref)
 
@@ -226,6 +226,19 @@ def _forward(wx, r, b, state, out_state, n_cta, save: bool):
     outs = tuple(out_state) if out_state is not None else tuple(
         _f32(dev, bsz, heads, dh) for _ in range(4))
     ins = tuple(state) if state is not None else ()
+    if dev.type == "meta":
+        hs = _f32(dev, bsz, t, heads, dh)
+        saved = (_f32(dev, bsz, t, 4, heads, dh),
+                 *(_f32(dev, bsz, t, heads, dh) for _ in range(3))) \
+            if save else None
+        # the product's multiply-adds and about 20 operations of gating a
+        # state element and step; each input read once, each output
+        # (the saving mode's too) written once
+        _shard.meta_launch(NAME, 2.0 * bsz * t * 4 * heads * dh * dh
+                           + 20.0 * bsz * t * heads * dh,
+                           _shard.nbytes(wx, r, b, *ins, hs, *outs,
+                                         *(saved or ())))
+        return hs, outs, saved
     _build.check_inputs(
         NAME, (wx, r), f32s=(b, *ins, *outs),
         shapes_ok=(four == 4 and t >= 1 and r.shape == (4, heads, dh, dh)
@@ -295,6 +308,21 @@ def slstm_scan_bwd(
     dev = r.device
     ins = tuple(state[1:]) if state is not None else ()
     seeds = tuple(d_state) if d_state is not None else ()
+    if dev.type == "meta":
+        dpre = _f32(dev, bsz, t, 4, heads, dh)
+        d0 = tuple(_f32(dev, bsz, heads, dh) for _ in range(4))
+        # the launch alone: the reverse scan's products and about 40
+        # operations of gating a state element and step; R, what the
+        # forward saved, dhs, the state and seeds read, dpre and the
+        # initial state's gradient written (dR and db below are counted
+        # as the plain products they are)
+        _shard.meta_launch(BWD_NAME, 2.0 * 4 * dh * dh * bsz * t * heads
+                           + 40.0 * bsz * t * heads * dh,
+                           _shard.nbytes(r, *saved, dhs, *ins, *seeds, dpre,
+                                         *d0))
+        h0 = state[0] if state is not None else None
+        dr, db = param_grads(h0, hs, dpre, r.dtype, b.dtype)
+        return dpre.to(wx_dtype), dr, db, d0
     # the kernel reads R^T (rt[g, h, j, k] = R[g, h, k, j]) as the forward
     # reads R: coalesced rows, the same register and shared-memory layout
     rt = r.transpose(2, 3).contiguous()
@@ -387,12 +415,14 @@ def slstm_scan(
     raises under grad).  ``n_cta`` overrides the plan's cluster size on the
     card."""
     ins = tuple(state) if state is not None else (None,) * 4
-    if torch.is_grad_enabled() and any(
-            x is not None and x.requires_grad for x in (wx, r, b, *ins)):
-        if out_state is not None:
-            raise RuntimeError(f"{NAME}: out_state (an in-place state "
-                               "update) cannot run on inputs that require "
-                               "grad")
+    grad = torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in (wx, r, b, *ins))
+    if grad and out_state is not None:
+        raise RuntimeError(f"{NAME}: out_state (an in-place state update) "
+                           "cannot run on inputs that require grad")
+    if _shard.is_dtensor(wx) or _shard.is_dtensor(r):
+        return _dtensor_scan(wx, r, b, state, out_state, n_cta)
+    if grad:
         hs, *final = SLSTMScanFn.apply(wx, r, b, *ins, n_cta)
         return hs, tuple(final)
     hs, final, _ = _forward(wx, r, b, state, out_state, n_cta, save=False)
@@ -400,3 +430,25 @@ def slstm_scan(
 
 
 slstm_scan.launches = 0
+
+
+def _dtensor_scan(wx, r, b, state, out_state, n_cta):
+    """:func:`slstm_scan` on DTensors, on each device's shards
+    (``_shard.local_call``: batch and heads may stay sharded); the final
+    state is copied into ``out_state`` at the DTensor level, which
+    redistributes it to the state's placements."""
+    ins = tuple(state) if state is not None else ()
+
+    def local(wx, r, b, *st):
+        hs, final = slstm_scan(wx, r, b, st or None, n_cta=n_cta)
+        return (hs, *final)
+
+    hs, *final = _shard.local_call(
+        local, (wx, r, b, *ins), ((0, 3), (None, 1), (None, 1),
+                                  *((0, 1),) * len(ins)),
+        ((0, 2),) + ((0, 1),) * 4)
+    if out_state is not None:
+        for dst, src in zip(out_state, final):
+            dst.copy_(src)
+        final = out_state
+    return hs, tuple(final)

@@ -20,9 +20,10 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import _shard
 from .config import LayerDef, ModelConfig, StageDef
 from .layers import attention, ffn, mamba, mla, xlstm
-from .layers.common import draws_into, rmsnorm, rmsnorm_init
+from .layers.common import draws_into, rmsnorm, rmsnorm_axes, rmsnorm_init
 
 
 @dataclass
@@ -50,6 +51,20 @@ _MIXER_INIT = {
     "mlstm": xlstm.mlstm_init,
     "slstm": xlstm.slstm_init,
 }
+_MIXER_AXES = {
+    "attn": attention.attn_axes,
+    "mla": mla.mla_axes,
+    "mamba": mamba.mamba_axes,
+    "mlstm": xlstm.mlstm_axes,
+    "slstm": xlstm.slstm_axes,
+}
+_MIXER_CACHE_AXES = {
+    "attn": attention.kv_cache_axes,
+    "mla": mla.mla_cache_axes,
+    "mamba": mamba.mamba_cache_axes,
+    "mlstm": xlstm.mlstm_cache_axes,
+    "slstm": xlstm.slstm_cache_axes,
+}
 
 
 def layer_init(generator: torch.Generator, ld: LayerDef, cfg: ModelConfig,
@@ -69,6 +84,21 @@ def layer_init(generator: torch.Generator, ld: LayerDef, cfg: ModelConfig,
         p["norm_x"] = rmsnorm_init(cfg.d_model, dtype, dev)
         p["cross"] = attention.attn_init(generator, cfg, dtype)
     return p
+
+
+def layer_axes(ld: LayerDef, cfg: ModelConfig) -> dict:
+    """The logical axes of :func:`layer_init`'s tree, leaf for leaf."""
+    a: dict = {
+        "norm1": rmsnorm_axes(),
+        "mixer": _MIXER_AXES[ld.mixer](cfg),
+    }
+    if ld.ffn != "none":
+        a["norm2"] = rmsnorm_axes()
+        a["ffn"] = ffn.ffn_axes() if ld.ffn == "dense" else ffn.moe_axes(cfg)
+    if ld.cross_attn:
+        a["norm_x"] = rmsnorm_axes()
+        a["cross"] = attention.attn_axes(cfg)
+    return a
 
 
 def layer_cache_init(ld: LayerDef, cfg: ModelConfig, batch: int,
@@ -97,6 +127,16 @@ def layer_cache_init(ld: LayerDef, cfg: ModelConfig, batch: int,
         shape = (batch, enc_len, cfg.n_kv_heads, cfg.resolved_head_dim)
         c["cross"] = {name: torch.zeros(shape, dtype=dtype, device=device)
                       for name in ("k", "v")}
+    return c
+
+
+def layer_cache_axes(ld: LayerDef) -> dict:
+    c: dict = {"self": _MIXER_CACHE_AXES[ld.mixer]()}
+    if ld.cross_attn:
+        c["cross"] = {
+            "k": ("batch", "cache", "kv_heads", "head_dim"),
+            "v": ("batch", "cache", "kv_heads", "head_dim"),
+        }
     return c
 
 
@@ -182,6 +222,8 @@ def _stacked(repeats: int, make, device: torch.device) -> dict:
         shapes = make()
     out = _map(shapes, lambda v: torch.empty((repeats, *v.shape),
                                              dtype=v.dtype, device=device))
+    if device.type == "meta":                # an abstract tree: shapes only
+        return out
     where = {id(a): b for a, b in zip(_leaves(shapes), _leaves(out))}
     if any(id(t) not in where for t in drawn):
         raise RuntimeError("a layer's random leaf is not a normal_init draw "
@@ -208,6 +250,16 @@ def take_layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def layer_params(tree: dict, i: int) -> dict:
+    """The i-th layer's params: views of ``tree``; DTensor weights are
+    gathered over the data-parallel mesh axes first (FSDP), their
+    tensor-parallel shards kept."""
+    layer = take_layer(tree, i)
+    if not _shard.is_dtensor(next(_leaves(tree))):
+        return layer
+    return _map(layer, _shard.unshard)
+
+
 def stage_init(generator: torch.Generator, stage: StageDef,
                cfg: ModelConfig, dtype: torch.dtype) -> dict:
     """Stacked params: {'p0'..'pN': layer params [repeats, ...]}."""
@@ -217,6 +269,15 @@ def stage_init(generator: torch.Generator, stage: StageDef,
                           generator.device)
         for i, ld in enumerate(stage.pattern)
     }
+
+
+def _prepend_layers(tree: dict) -> dict:
+    return _map(tree, lambda ax: ("layers",) + ax)
+
+
+def stage_axes(stage: StageDef, cfg: ModelConfig) -> dict:
+    return {f"p{i}": _prepend_layers(layer_axes(ld, cfg))
+            for i, ld in enumerate(stage.pattern)}
 
 
 def stage_cache_init(stage: StageDef, cfg: ModelConfig, batch: int,
@@ -229,6 +290,11 @@ def stage_cache_init(stage: StageDef, cfg: ModelConfig, batch: int,
                               enc_len), device)
         for i, ld in enumerate(stage.pattern)
     }
+
+
+def stage_cache_axes(stage: StageDef) -> dict:
+    return {f"p{i}": _prepend_layers(layer_cache_axes(ld))
+            for i, ld in enumerate(stage.pattern)}
 
 
 def stage_apply(
@@ -250,8 +316,9 @@ def stage_apply(
         aux = 0.0
         for i, ld in enumerate(stage.pattern):
             c = take_layer(caches[f"p{i}"], r) if caches is not None else None
-            x, _, a = layer_apply(take_layer(params[f"p{i}"], r), ld, x, ctx,
-                                  c)
+            x, _, a = layer_apply(layer_params(params[f"p{i}"], r), ld, x,
+                                  ctx, c)
+            x = _shard.settle(x)
             aux = aux + a
         return x, aux
 

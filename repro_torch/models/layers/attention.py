@@ -25,7 +25,7 @@ import torch
 from ...kernels.decode_attention import decode_attention
 from ...kernels.flash_attention import flash_attention, gqa_attention_ref
 from ..config import ModelConfig
-from .common import apply_rope, dense_init, rope_cos_sin
+from .common import apply_rope, dense_init, reshape, rope_cos_sin
 
 # The model's GQA attention over an explicit mask [B|1, 1, T, S]: the plain
 # version the kernels are held against (math in f32).
@@ -54,6 +54,22 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig,
     return p
 
 
+def attn_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of :func:`attn_init`'s tree, leaf for leaf (the
+    names that ``models/sharding.py`` maps onto mesh axes)."""
+    a = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads_flat", "embed"),
+    }
+    if cfg.qkv_bias:
+        a["bq"] = ("heads", "head_dim")
+        a["bk"] = ("kv_heads", "head_dim")
+        a["bv"] = ("kv_heads", "head_dim")
+    return a
+
+
 # --------------------------------------------------------------------------- #
 # KV cache                                                                    #
 # --------------------------------------------------------------------------- #
@@ -68,6 +84,14 @@ def init_kv_cache(batch: int, length: int, n_kv: int, head_dim: int,
                          device=device),
         "positions": torch.full((batch, length), -1, dtype=torch.int32,
                                 device=device),
+    }
+
+
+def kv_cache_axes() -> dict:
+    return {
+        "k": ("batch", "cache", "kv_heads", "head_dim"),
+        "v": ("batch", "cache", "kv_heads", "head_dim"),
+        "positions": ("batch", "cache"),
     }
 
 
@@ -97,7 +121,7 @@ def _project(x: torch.Tensor, w: torch.Tensor,
              b: Optional[torch.Tensor]) -> torch.Tensor:
     """x [B, T, d] @ w [d, N, hd] (+ b [N, hd]) -> [B, T, N, hd]."""
     bsz, t, d = x.shape
-    out = torch.matmul(x, w.reshape(d, -1)).view(bsz, t, *w.shape[1:])
+    out = reshape(torch.matmul(x, reshape(w, d, -1)), bsz, t, *w.shape[1:])
     return out if b is None else out + b
 
 
@@ -143,7 +167,7 @@ def attn_apply(
     slot = _write_slot(cache_len, pos, window)
     cache["k"][:, slot] = k_new[:, 0]
     cache["v"][:, slot] = v_new[:, 0]
-    cache["positions"][:, slot] = pos
+    cache["positions"][:, slot].fill_(pos)
     out = decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
                            cache["positions"], pos, window=window)
     return out[:, None], cache
@@ -151,7 +175,7 @@ def attn_apply(
 
 def attn_out_project(params: dict, attn_out: torch.Tensor) -> torch.Tensor:
     b, t, h, d = attn_out.shape
-    return torch.matmul(attn_out.reshape(b, t, h * d), params["wo"])
+    return torch.matmul(reshape(attn_out, b, t, h * d), params["wo"])
 
 
 # --------------------------------------------------------------------------- #

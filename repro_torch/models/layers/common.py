@@ -11,6 +11,9 @@ from contextvars import ContextVar
 from typing import Iterator, Optional
 
 import torch
+import torch.nn.functional as F
+
+from ...kernels import _shard
 
 # --------------------------------------------------------------------------- #
 # Initialisers                                                                #
@@ -88,6 +91,10 @@ def rmsnorm_init(dim: int, dtype: torch.dtype,
     return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
 
 
+def rmsnorm_axes(axis: str = "embed") -> dict:
+    return {"scale": (axis,)}
+
+
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     dtype = x.dtype
     x = x.float()
@@ -141,6 +148,38 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # Activations                                                                 #
 # --------------------------------------------------------------------------- #
+
+
+def reshape(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``x.reshape(shape)``; a DTensor is first gathered on the dims the
+    reshape changes (``_shard.reshape``: its heads may not split evenly)."""
+    if _shard.is_dtensor(x):
+        return _shard.reshape(x, shape)
+    return x.reshape(shape)
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; a DTensor's shards run it as they lie (DTensor has
+    no sharding rule for its backward)."""
+    if _shard.is_dtensor(x):
+        return _shard.along(F.logsigmoid, x)
+    return F.logsigmoid(x)
+
+
+def cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum``; a DTensor's shards run it with ``dim`` gathered
+    (DTensor has no rule for the flip in its backward)."""
+    if _shard.is_dtensor(x):
+        return _shard.along(lambda t: torch.cumsum(t, dim=dim), x, dim)
+    return torch.cumsum(x, dim=dim)
+
+
+def pad_last(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x with ``n`` zeros appended to its last axis; a DTensor's shards pad
+    their own (the last axis gathered)."""
+    if _shard.is_dtensor(x):
+        return _shard.along(lambda t: F.pad(t, (0, n)), x, -1)
+    return F.pad(x, (0, n))
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

@@ -17,8 +17,11 @@ activations' dtype and routed in f32.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ...kernels import _shard
 from ..config import ModelConfig, MoEConfig
 from .common import dense_init, normal_init, swiglu
 
@@ -34,6 +37,11 @@ def ffn_init(generator: torch.Generator, d_model: int, d_ff: int,
         "wu": dense_init(generator, d_model, d_ff, dtype=dtype),
         "wd": dense_init(generator, d_ff, d_model, dtype=dtype),
     }
+
+
+def ffn_axes() -> dict:
+    return {"wg": ("embed", "ff"), "wu": ("embed", "ff"),
+            "wd": ("ff", "embed")}
 
 
 def ffn_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -63,6 +71,18 @@ def moe_init(generator: torch.Generator, cfg: ModelConfig,
     if m.n_shared:
         p["shared"] = ffn_init(generator, d, m.d_expert * m.n_shared, dtype)
     return p
+
+
+def moe_axes(cfg: ModelConfig) -> dict:
+    a = {
+        "router": ("embed", "experts"),
+        "wg": ("experts", "embed", "expert_ff"),
+        "wu": ("experts", "embed", "expert_ff"),
+        "wd": ("experts", "expert_ff", "embed"),
+    }
+    if cfg.moe.n_shared:
+        a["shared"] = ffn_axes()
+    return a
 
 
 def _top_k(scores: torch.Tensor, k: int):
@@ -97,6 +117,33 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx[..., None] == classes).float()
 
 
+def _dispatch(m: MoEConfig, logits: torch.Tensor, cap: int):
+    """Router logits [g, t, E] f32 -> (dispatch [g,t,E,C], combine
+    [g,t,E,C], the tokens' expert load [g,t,E], probs [g,t,E]), all f32.
+    A DTensor's shards run it with the groups as they are sharded and the
+    rest gathered (DTensor has no sharding rule that keeps the top k, the
+    running count and the one-hots apart)."""
+    if _shard.is_dtensor(logits):
+        dims = (0, None)
+        return _shard.local_call(functools.partial(_dispatch, m, cap=cap),
+                                 (logits,), (dims,), (dims,) * 4)
+    g, g_sz, e = logits.shape
+    k = m.top_k
+    weights, idx, probs = _route(m, logits)
+    onehot = _one_hot(idx, e)                               # [g,t,k,E]
+    # slot of each (token, k) in its expert's buffer: the running count
+    pos = torch.cumsum(onehot.reshape(g, g_sz * k, e), dim=1) - 1.0
+    pos = pos.reshape(g, g_sz, k, e)
+    kept = onehot * ((pos < cap) & (onehot > 0))
+    pos_oh = _one_hot(pos.to(torch.int32), cap)             # [g,t,k,E,C]
+    # an expert appears at most once in a token's top k, so each sum over
+    # k below has at most one nonzero term
+    dispatch = (kept[..., None] * pos_oh).sum(dim=2)        # [g,t,E,C]
+    combine = (weights[..., None, None] * kept[..., None] * pos_oh).sum(dim=2)
+    load = onehot[..., 0, :] if k == 1 else onehot.sum(dim=2)
+    return dispatch, combine, load, probs
+
+
 def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
               group_size: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, T, d] -> (y [B, T, d], Switch load-balance aux loss, an f32
@@ -113,20 +160,9 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     xg = flat.reshape(g, g_sz, d)
 
     logits = torch.matmul(xg, params["router"].to(xg.dtype))
-    weights, idx, probs = _route(m, logits.float())
-
     e, k = m.n_experts, m.top_k
     cap = max(1, int(k * g_sz / e * m.capacity_factor + 0.9999))
-    onehot = _one_hot(idx, e)                               # [g,t,k,E]
-    # slot of each (token, k) in its expert's buffer: the running count
-    pos = torch.cumsum(onehot.reshape(g, g_sz * k, e), dim=1) - 1.0
-    pos = pos.reshape(g, g_sz, k, e)
-    kept = onehot * ((pos < cap) & (onehot > 0))
-    pos_oh = _one_hot(pos.to(torch.int32), cap)             # [g,t,k,E,C]
-    # an expert appears at most once in a token's top k, so each sum over
-    # k below has at most one nonzero term
-    dispatch = (kept[..., None] * pos_oh).sum(dim=2)        # [g,t,E,C]
-    combine = (weights[..., None, None] * kept[..., None] * pos_oh).sum(dim=2)
+    dispatch, combine, load, probs = _dispatch(m, logits.float(), cap)
 
     # xe [E, g*C, d]: every (expert, slot) row holds at most one token
     xe = torch.matmul(dispatch.to(xg.dtype).reshape(g, g_sz, e * cap)
@@ -139,8 +175,7 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     y = y.reshape(-1, d)[:n_tok].reshape(b, t, d)
 
     # Switch-style load balance aux loss: E * sum_e f_e * p_e
-    frac = (onehot[..., 0, :] if k == 1 else onehot.sum(dim=2)).mean(
-        dim=(0, 1)) / k
+    frac = load.mean(dim=(0, 1)) / k
     pmean = probs.mean(dim=(0, 1))
     aux = e * (frac * pmean).sum() * m.router_aux_weight
 

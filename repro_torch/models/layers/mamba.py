@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ...kernels import _shard
 from ..config import ModelConfig
 from .common import dense_init, normal_init, silu
 
@@ -47,6 +48,20 @@ def mamba_init(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def mamba_axes(cfg: ModelConfig) -> dict:
+    return {
+        "in_proj": ("embed", "d_inner2"),
+        "conv_w": ("conv", "d_inner"),
+        "conv_b": ("d_inner",),
+        "x_proj": ("d_inner", "dt_state"),
+        "dt_proj": ("dt_rank", "d_inner"),
+        "dt_bias": ("d_inner",),
+        "a_log": ("d_inner", "state"),
+        "d_skip": ("d_inner",),
+        "out_proj": ("d_inner", "embed"),
+    }
+
+
 def init_mamba_cache(batch: int, cfg: ModelConfig, dtype: torch.dtype,
                      device: torch.device) -> dict:
     """The last d_conv - 1 conv inputs [B, k-1, di] and the f32 state
@@ -60,13 +75,21 @@ def init_mamba_cache(batch: int, cfg: ModelConfig, dtype: torch.dtype,
     }
 
 
+def mamba_cache_axes() -> dict:
+    return {
+        "conv": ("batch", "conv", "d_inner"),
+        "ssm": ("batch", "d_inner", "state"),
+    }
+
+
 def _ssm_terms(params: dict, xc: torch.Tensor, cfg: ModelConfig):
     """xc [..., di] (post-conv, post-silu) -> the selective terms before
     discretisation: (dt [..., di], B [..., ds], C [..., ds]), all f32.  The
     step's abar = exp(dt A) and bx = (dt x) B are formed one step at a time
-    in :func:`mamba_apply`."""
+    in :func:`_selective_scan`."""
     dtr, ds = cfg.mamba_dt_rank, cfg.mamba.d_state
-    proj = torch.matmul(xc, params["x_proj"])
+    # a row-parallel product (d_inner sharded): reduced before dt's bias
+    proj = _shard.reduce_partial(torch.matmul(xc, params["x_proj"]))
     dt_in, b, c = proj.split([dtr, ds, ds], dim=-1)
     dt = F.softplus(torch.matmul(dt_in, params["dt_proj"])
                     + params["dt_bias"]).float()
@@ -88,6 +111,37 @@ def _conv_causal(params: dict, x: torch.Tensor,
     return out + params["conv_b"]
 
 
+def _selective_scan(dt, a, dtx, b_t, c_t, h):
+    """The recurrence over time from the state h [B, di, ds]: dt, dtx
+    [B, T, di], a [di, ds], B and C [B, T, ds] -> (y [B, T, di], final h),
+    f32.  A DTensor's shards run it with batch and d_inner as they are
+    sharded and the rest gathered; on meta tensors (the dry run) the T
+    steps are not run: empty outputs, and the loop's work reported as
+    ``kernels._shard`` reports a kernel's, as the dispatch-level count
+    would find it (its products' FLOPs, each op's inputs and outputs)."""
+    if _shard.is_dtensor(dt):
+        return _shard.local_call(
+            _selective_scan, (dt, a, dtx, b_t, c_t, h),
+            ((0, 2), (None, 0), (0, 2), (0, None), (0, None), (0, 1)),
+            ((0, 2), (0, 1)))
+    bsz, t, di = dt.shape
+    if dt.device.type == "meta":
+        ds = a.shape[1]
+        state, row, srow = 4 * bsz * di * ds, 4 * bsz * di, 4 * bsz * ds
+        step = 11 * state + 3 * row + 2 * srow + 4 * di * ds
+        cost = (2.0 * bsz * t * di * ds, t * step + 2 * 4 * bsz * t * di)
+        # the backward as about twice the forward's work
+        return _shard.meta_op("mamba_scan", (dt, a, dtx, b_t, c_t, h),
+                              (((bsz, t, di), dt.dtype), (h.shape, h.dtype)),
+                              cost, (2 * cost[0], 2 * cost[1]))
+    ys = []
+    for i in range(t):
+        h = torch.exp(dt[:, i, :, None] * a) * h + \
+            dtx[:, i, :, None] * b_t[:, i, None, :]
+        ys.append(torch.matmul(h, c_t[:, i, :, None])[..., 0])
+    return torch.stack(ys, dim=1), h
+
+
 def mamba_apply(
     params: dict,
     x: torch.Tensor,                    # [B, T, d]
@@ -106,12 +160,7 @@ def mamba_apply(
     dtx = dt * xc.float()                                   # [B, T, di]
     h = cache["ssm"] if cache is not None else \
         dt.new_zeros((x.shape[0], di, a.shape[1]))
-    ys = []
-    for i in range(x.shape[1]):
-        h = torch.exp(dt[:, i, :, None] * a) * h + \
-            dtx[:, i, :, None] * b_t[:, i, None, :]
-        ys.append(torch.matmul(h, c_t[:, i, :, None])[..., 0])
-    y = torch.stack(ys, dim=1)                              # [B, T, di] f32
+    y, h = _selective_scan(dt, a, dtx, b_t, c_t, h)        # y [B, T, di] f32
     if cache is not None:                   # the last k-1 inputs, the state
         cache["conv"].copy_(torch.cat([prior, xi], dim=1)[:, xi.shape[1]:])
         cache["ssm"].copy_(h)

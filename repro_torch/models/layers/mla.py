@@ -19,13 +19,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from ...kernels.flash_attention import flash_attention
 from ..config import ModelConfig
 from .attention import _project, _write_slot
-from .common import apply_rope, dense_init, masked_softmax, rmsnorm, \
-    rmsnorm_init, rope_cos_sin
+from .common import apply_rope, dense_init, masked_softmax, pad_last, \
+    reshape, rmsnorm, rmsnorm_axes, rmsnorm_init, rope_cos_sin
 
 
 def mla_init(generator: torch.Generator, cfg: ModelConfig,
@@ -52,6 +51,22 @@ def mla_init(generator: torch.Generator, cfg: ModelConfig,
     return p
 
 
+def mla_axes(cfg: ModelConfig) -> dict:
+    a: dict = {}
+    if cfg.mla.q_lora_rank:
+        a["wdq"] = ("embed", "q_rank")
+        a["q_norm"] = rmsnorm_axes("q_rank")
+        a["wuq"] = ("q_rank", "heads", "head_dim")
+    else:
+        a["wq"] = ("embed", "heads", "head_dim")
+    a["wdkv"] = ("embed", "kv_rank_rope")
+    a["kv_norm"] = rmsnorm_axes("kv_rank")
+    a["wuk"] = ("kv_rank", "heads", "head_dim")
+    a["wuv"] = ("kv_rank", "heads", "head_dim")
+    a["wo"] = ("heads_flat", "embed")
+    return a
+
+
 def init_mla_cache(batch: int, length: int, cfg: ModelConfig,
                    dtype: torch.dtype, device: torch.device) -> dict:
     m = cfg.mla
@@ -62,6 +77,14 @@ def init_mla_cache(batch: int, length: int, cfg: ModelConfig,
                               device=device),
         "positions": torch.full((batch, length), -1, dtype=torch.int32,
                                 device=device),
+    }
+
+
+def mla_cache_axes() -> dict:
+    return {
+        "c_kv": ("batch", "cache", "kv_rank"),
+        "k_rope": ("batch", "cache", "rope_dim"),
+        "positions": ("batch", "cache"),
     }
 
 
@@ -121,11 +144,11 @@ def mla_apply(
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, t, h, rd)],
                       dim=-1)
-        v = F.pad(v, (0, nd + rd - vd))
+        v = pad_last(v, nd + rd - vd)
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               positions, positions, causal=True,
                               window=window)[..., :vd]
-        return torch.matmul(out.reshape(b, t, h * vd), params["wo"]), None
+        return torch.matmul(reshape(out, b, t, h * vd), params["wo"]), None
 
     # ---- absorbed decode form (T == 1) ----------------------------------- #
     if t != 1 or pos is None:
@@ -135,7 +158,7 @@ def mla_apply(
     slot = _write_slot(cache["c_kv"].shape[1], pos, window)
     cache["c_kv"][:, slot] = c_new[:, 0]
     cache["k_rope"][:, slot] = kr_new[:, 0]
-    cache["positions"][:, slot] = pos
+    cache["positions"][:, slot].fill_(pos)
     c_kv, k_rope, stored = cache["c_kv"], cache["k_rope"], cache["positions"]
     scale = (nd + rd) ** -0.5
     q_abs = torch.einsum("bthk,rhk->bthr", q_nope, params["wuk"])
@@ -147,4 +170,4 @@ def mla_apply(
     w = masked_softmax(scores, valid[:, None, None, :])
     ctx = torch.einsum("bhts,bsr->bthr", w.to(c_kv.dtype), c_kv)
     out = torch.einsum("bthr,rhk->bthk", ctx, params["wuv"])
-    return torch.matmul(out.reshape(b, t, h * vd), params["wo"]), cache
+    return torch.matmul(reshape(out, b, t, h * vd), params["wo"]), cache

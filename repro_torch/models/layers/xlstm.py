@@ -17,11 +17,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
+from ...kernels import _shard
 from ...kernels.slstm_scan import slstm_scan
 from ..config import ModelConfig
-from .common import dense_init, groupnorm_heads, normal_init, silu
+from .common import cumsum, dense_init, groupnorm_heads, log_sigmoid, \
+    normal_init, reshape, silu
 
 # =========================================================================== #
 # mLSTM                                                                       #
@@ -57,6 +58,23 @@ def mlstm_init(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def mlstm_axes(cfg: ModelConfig) -> dict:
+    return {
+        "up_proj": ("embed", "d_inner2"),
+        "conv_w": ("conv", "d_inner"),
+        "conv_b": ("d_inner",),
+        "wq": ("d_inner", "heads", "head_dim"),
+        "wk": ("d_inner", "heads", "head_dim"),
+        "wv": ("d_inner", "heads", "head_dim"),
+        "w_i": ("d_inner", "heads"),
+        "w_f": ("d_inner", "heads"),
+        "b_i": ("heads",),
+        "b_f": ("heads",),
+        "skip": ("d_inner",),
+        "down_proj": ("d_inner", "embed"),
+    }
+
+
 def init_mlstm_cache(batch: int, cfg: ModelConfig, dtype: torch.dtype,
                      device: torch.device) -> dict:
     di, h, dh = _mlstm_dims(cfg)
@@ -67,6 +85,15 @@ def init_mlstm_cache(batch: int, cfg: ModelConfig, dtype: torch.dtype,
         "c": torch.zeros((batch, h, dh, dh), dtype=f32, device=device),
         "n": torch.zeros((batch, h, dh), dtype=f32, device=device),
         "m": torch.full((batch, h), -1e30, dtype=f32, device=device),
+    }
+
+
+def mlstm_cache_axes() -> dict:
+    return {
+        "conv": ("batch", "conv", "d_inner"),
+        "c": ("batch", "heads", "head_dim", "head_dim2"),
+        "n": ("batch", "heads", "head_dim"),
+        "m": ("batch", "heads"),
     }
 
 
@@ -87,7 +114,7 @@ def _conv_causal(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
 def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [B, T, di] @ w [di, H, dh] -> [B, T, H, dh]."""
     bsz, t, di = x.shape
-    return torch.matmul(x, w.reshape(di, -1)).view(bsz, t, *w.shape[1:])
+    return reshape(torch.matmul(x, reshape(w, di, -1)), bsz, t, *w.shape[1:])
 
 
 def _qkv_gates(params: dict, xi: torch.Tensor):
@@ -104,8 +131,8 @@ def _mlstm_parallel(q, k, v, i_pre, f_pre) -> torch.Tensor:
     """The T x T decay-masked form over a whole sequence -> [B, T, H, dh]
     f32."""
     t, dh = q.shape[1], q.shape[3]
-    logf = F.logsigmoid(f_pre)                              # [B,T,H]
-    cum = torch.cumsum(logf, dim=1)
+    logf = log_sigmoid(f_pre)                               # [B,T,H]
+    cum = cumsum(logf, 1)
     # a[t, s] = sum_{j=s+1..t} logf_j + logi_s  (t >= s)
     amat = cum[:, :, None, :] - cum[:, None, :, :] + i_pre[:, None, :, :]
     causal = torch.tril(torch.ones((t, t), dtype=torch.bool,
@@ -142,7 +169,7 @@ def _mlstm_chunked(q, k, v, i_pre, f_pre, chunk: int):
         part = slice(s0, min(s0 + chunk, t))
         qc = q[:, part].float() * scale
         kc, vc = k[:, part].float(), v[:, part].float()
-        cum = torch.cumsum(F.logsigmoid(f_pre[:, part]), dim=1)  # inclusive
+        cum = cumsum(log_sigmoid(f_pre[:, part]), 1)            # inclusive
         u = i_pre[:, part] - cum                            # i_s - cum_s
         w = torch.maximum(m_prev[:, None], torch.cummax(u, dim=1).values)
         m_t = cum + w                                   # row-max stabiliser
@@ -178,7 +205,7 @@ def _mlstm_update(cache: dict, k: torch.Tensor, v: torch.Tensor,
                   i_pre: torch.Tensor, f_pre: torch.Tensor) -> torch.Tensor:
     """One recurrent step written into ``cache`` (c, n, m) in place:
     k/v [B, H, dh] f32, gates [B, H].  Returns the new stabiliser m."""
-    logf = F.logsigmoid(f_pre)
+    logf = log_sigmoid(f_pre)
     m_new = torch.maximum(logf + cache["m"], i_pre)
     f_eff = torch.exp(logf + cache["m"] - m_new)
     i_eff = torch.exp(i_pre - m_new)
@@ -231,9 +258,43 @@ def mlstm_apply(
 
     hout = groupnorm_heads(hout).to(x.dtype)
     b, t = x.shape[:2]
-    hflat = hout.reshape(b, t, di) + params["skip"] * xi
+    hflat = reshape(hout, b, t, di) + params["skip"] * xi
     y = hflat * silu(z)
     return torch.matmul(y, params["down_proj"]), cache
+
+
+def _mlstm_recurrence(cache: dict, kf: torch.Tensor, vf: torch.Tensor,
+                      i_pre: torch.Tensor, f_pre: torch.Tensor) -> None:
+    """:func:`_mlstm_update` for each of the T steps of kf/vf [B, T, H, dh]
+    f32 and the gates [B, T, H], into ``cache`` in place.  A DTensor's
+    shards run it on a local copy of the state, batch and heads as they
+    are sharded, which is then copied into the cache; on meta tensors (the
+    dry run) the steps are not run and their bytes are reported as
+    ``kernels._shard`` reports a kernel's (elementwise: no products)."""
+    if _shard.is_dtensor(kf):
+        def local(c, n, m, kf, vf, i_pre, f_pre):
+            st = {"c": c.clone(), "n": n.clone(), "m": m.clone()}
+            _mlstm_recurrence(st, kf, vf, i_pre, f_pre)
+            return st["c"], st["n"], st["m"]
+
+        state = _shard.local_call(
+            local, (cache["c"], cache["n"], cache["m"], kf, vf, i_pre,
+                    f_pre),
+            ((0, 1), (0, 1), (0, 1), (0, 2), (0, 2), (0, 2), (0, 2)),
+            ((0, 1), (0, 1), (0, 1)))
+        for name, val in zip(("c", "n", "m"), state):
+            cache[name].copy_(val)
+        return
+    if kf.device.type == "meta":
+        bsz, t, h, dh = kf.shape
+        c_bytes, n_bytes = 4 * bsz * h * dh * dh, 4 * bsz * h * dh
+        # c scaled and summed in place with an outer product, n likewise,
+        # a dozen [B, H] gate ops
+        step = 6 * c_bytes + 2 * 4 * n_bytes + 12 * 4 * bsz * h
+        _shard.meta_launch("mlstm_recurrence", 0.0, t * step)
+        return
+    for t in range(kf.shape[1]):
+        _mlstm_update(cache, kf[:, t], vf[:, t], i_pre[:, t], f_pre[:, t])
 
 
 def fill_mlstm_cache(params: dict, h: torch.Tensor, cache: dict) -> dict:
@@ -244,9 +305,7 @@ def fill_mlstm_cache(params: dict, h: torch.Tensor, cache: dict) -> dict:
     xi_raw = torch.matmul(h, params["up_proj"])[..., :di]
     xi = silu(_conv_causal(params["conv_w"], params["conv_b"], xi_raw, None))
     _, k, v, i_pre, f_pre = _qkv_gates(params, xi)
-    kf, vf = k.float(), v.float()
-    for t in range(h.shape[1]):
-        _mlstm_update(cache, kf[:, t], vf[:, t], i_pre[:, t], f_pre[:, t])
+    _mlstm_recurrence(cache, k.float(), v.float(), i_pre, f_pre)
     kk = params["conv_w"].shape[0] - 1
     tail = xi_raw[:, max(0, xi_raw.shape[1] - kk):]
     cache["conv"].zero_()
@@ -278,6 +337,16 @@ def slstm_init(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def slstm_axes(cfg: ModelConfig) -> dict:
+    return {
+        "w": ("embed", "gates", "heads", "head_dim"),
+        "r": ("gates", "heads", "head_dim", "head_dim2"),
+        "b": ("gates", "heads", "head_dim"),
+        "ffn_gate": ("embed", "ff"),
+        "ffn_down": ("ff", "embed"),
+    }
+
+
 def init_slstm_cache(batch: int, cfg: ModelConfig,
                      device: torch.device) -> dict:
     """The scan's zero state (h, c, n, m) = (0, 0, 1, 0), each [B, H, dh]
@@ -290,6 +359,15 @@ def init_slstm_cache(batch: int, cfg: ModelConfig,
         "c": torch.zeros(shape, dtype=f32, device=device),
         "n": torch.ones(shape, dtype=f32, device=device),
         "m": torch.zeros(shape, dtype=f32, device=device),
+    }
+
+
+def slstm_cache_axes() -> dict:
+    return {
+        "h": ("batch", "heads", "head_dim"),
+        "c": ("batch", "heads", "head_dim"),
+        "n": ("batch", "heads", "head_dim"),
+        "m": ("batch", "heads", "head_dim"),
     }
 
 
@@ -307,14 +385,15 @@ def slstm_apply(
     b, t, d = x.shape
     heads = cfg.n_heads
     dh = d // heads
-    wx = torch.matmul(x, params["w"].reshape(d, -1)).view(b, t, 4, heads, dh)
+    wx = reshape(torch.matmul(x, reshape(params["w"], d, -1)), b, t, 4, heads,
+                 dh)
     if cache is None:
         hs, _ = slstm_scan(wx, params["r"], params["b"])
     else:
         state = (cache["h"], cache["c"], cache["n"], cache["m"])
         hs, _ = slstm_scan(wx, params["r"], params["b"], state,
                            out_state=state)
-    hs = groupnorm_heads(hs).to(x.dtype).reshape(b, t, d)
+    hs = reshape(groupnorm_heads(hs).to(x.dtype), b, t, d)
     y = x + hs                                          # residual core
     # gated FFN (proj factor 4/3)
     gu = torch.matmul(y, params["ffn_gate"])

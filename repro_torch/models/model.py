@@ -20,17 +20,21 @@ field that the JAX model never reads, and the port ignores it too.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .blocks import LayerCtx, layer_apply, stage_apply, stage_cache_init, \
-    stage_init, take_layer
+from ..kernels import _shard
+from .blocks import LayerCtx, layer_apply, layer_params, stage_apply, \
+    stage_axes, stage_cache_axes, stage_cache_init, stage_init, take_layer
 from .config import ModelConfig
 from .layers.attention import cross_kv, project_kv
 from .layers.mla import _compress
 from .layers.xlstm import fill_mlstm_cache
-from .layers.common import normal_init, dense_init, rmsnorm, rmsnorm_init
+from .layers.common import dense_init, draws_into, normal_init, rmsnorm, \
+    rmsnorm_axes, rmsnorm_init
 
 Params = dict
 Caches = dict
@@ -48,10 +52,20 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device: str | torch.device = "cuda") -> Params:
     """Random params with the JAX package's distributions, drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    ``torch.Generator`` seeded with ``seed`` on ``device``; on ``"meta"``
+    the tree's shapes and dtypes with nothing drawn (a generator cannot
+    live there): :func:`abstract_params`."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        with draws_into(dry=True):
+            return _init_params(cfg, SimpleNamespace(device=dev))
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    return _init_params(cfg, gen)
+
+
+def _init_params(cfg: ModelConfig, gen) -> Params:
+    dev = gen.device
     dt = _dtype(cfg)
     p: Params = {
         "embed": normal_init(gen, (cfg.padded_vocab, cfg.d_model), 0.02, dt),
@@ -73,6 +87,32 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     return p
 
 
+def params_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of :func:`init_params`'s tree, leaf for leaf."""
+    a: dict = {
+        "embed": ("vocab", "embed"),
+        "final_norm": rmsnorm_axes(),
+    }
+    if not cfg.tie_embeddings:
+        a["lm_head"] = ("embed", "vocab")
+    if cfg.modality_embed_dim:
+        a["proj_in"] = ("modality", "embed")
+        a["proj_mid"] = ("embed", "embed2")
+    for i, st in enumerate(cfg.encoder_stages):
+        a[f"enc{i}"] = stage_axes(st, cfg)
+    if cfg.encoder_stages:
+        a["enc_norm"] = rmsnorm_axes()
+    for i, st in enumerate(cfg.stages):
+        a[f"dec{i}"] = stage_axes(st, cfg)
+    return a
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The param tree as ``meta`` tensors (shapes and dtypes, no storage,
+    nothing drawn) for the dry run."""
+    return init_params(cfg, device="meta")
+
+
 # --------------------------------------------------------------------------- #
 # Embedding / head                                                            #
 # --------------------------------------------------------------------------- #
@@ -80,21 +120,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
 
 def embed_tokens(params: Params, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings; a DTensor table is gathered over the
+    data-parallel axes and looked up shard by shard over its vocab
+    (``_shard.vocab_lookup``)."""
+    if _shard.is_dtensor(params["embed"]):
+        return _shard.settle(_shard.vocab_lookup(
+            _shard.unshard(params["embed"]), tokens))
     return params["embed"][tokens]
 
 
 def project_modality(params: Params, emb: torch.Tensor) -> torch.Tensor:
     """emb [B, S, modality_dim] -> [B, S, d]: two projections with the
     tanh-approximated GELU between them (``jax.nn.gelu``'s default)."""
-    h = torch.matmul(emb.to(params["proj_in"].dtype), params["proj_in"])
-    return torch.matmul(F.gelu(h, approximate="tanh"), params["proj_mid"])
+    w_in = _shard.unshard(params["proj_in"])
+    h = torch.matmul(emb.to(w_in.dtype), w_in)
+    return torch.matmul(F.gelu(h, approximate="tanh"),
+                        _shard.unshard(params["proj_mid"]))
 
 
 def lm_logits(params: Params, cfg: ModelConfig,
               x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return torch.matmul(x, params["embed"].t())
-    return torch.matmul(x, params["lm_head"])
+        return torch.matmul(x, _shard.unshard(params["embed"]).t())
+    return torch.matmul(x, _shard.unshard(params["lm_head"]))
 
 
 def _positions(t: int, device: torch.device) -> torch.Tensor:
@@ -191,22 +239,38 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
     }
 
 
+def caches_axes(cfg: ModelConfig) -> dict:
+    return {f"dec{i}": stage_cache_axes(st)
+            for i, st in enumerate(cfg.stages)}
+
+
+def abstract_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                    enc_len: int = 0) -> Caches:
+    """:func:`init_caches`'s tree as ``meta`` tensors."""
+    return init_caches(cfg, batch, cache_len, enc_len, device="meta")
+
+
 # --------------------------------------------------------------------------- #
 # Prefill (fill caches with a prompt) and single-token decode                 #
 # --------------------------------------------------------------------------- #
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: dict,
-            cache_len: int) -> tuple[torch.Tensor, Caches]:
+            cache_len: int, *, moe_group_size: int = 256,
+            caches: Caches | None = None) -> tuple[torch.Tensor, Caches]:
     """Runs the full prompt (``batch`` as :func:`forward` takes it),
-    returns (last-position logits [B, 1, V], filled caches)."""
+    returns (last-position logits [B, 1, V], filled caches): ``caches``
+    where given (as :func:`init_caches` makes them, e.g. sharded), else
+    fresh ones."""
     enc_out = _encoder_output(params, cfg, batch)
     x = _decoder_input(params, cfg, batch)
     b, t, _ = x.shape
     ctx = LayerCtx(cfg=cfg, positions=_positions(t, x.device), causal=True,
-                   window=cfg.sliding_window, enc_out=enc_out)
+                   window=cfg.sliding_window, enc_out=enc_out,
+                   moe_group_size=moe_group_size)
     enc_len = enc_out.shape[1] if enc_out is not None else 0
-    caches = init_caches(cfg, b, cache_len, enc_len, device=x.device)
+    if caches is None:
+        caches = init_caches(cfg, b, cache_len, enc_len, device=x.device)
     for i, st in enumerate(cfg.stages):
         x = _prefill_stage(params[f"dec{i}"], st, x, ctx, caches[f"dec{i}"],
                            cache_len)
@@ -218,9 +282,9 @@ def _prefill_stage(stage_params: dict, st, x: torch.Tensor, ctx: LayerCtx,
                    caches: dict, cache_len: int) -> torch.Tensor:
     for r in range(st.repeats):
         for i, ld in enumerate(st.pattern):
-            x = _prefill_layer(take_layer(stage_params[f"p{i}"], r), ld, x,
-                               ctx, take_layer(caches[f"p{i}"], r),
-                               cache_len)
+            x = _shard.settle(_prefill_layer(
+                layer_params(stage_params[f"p{i}"], r), ld, x, ctx,
+                take_layer(caches[f"p{i}"], r), cache_len))
     return x
 
 
@@ -291,7 +355,8 @@ def _scatter_tail(cache: dict, seqs: dict, positions: torch.Tensor,
 
 
 def decode_step(params: Params, cfg: ModelConfig, caches: Caches,
-                token: torch.Tensor, pos: int) -> tuple[torch.Tensor, Caches]:
+                token: torch.Tensor, pos: int, *,
+                moe_group_size: int = 256) -> tuple[torch.Tensor, Caches]:
     """One-token decode against the caches (written in place).
 
     token [B, 1] int, pos the current absolute position as a host int (a
@@ -303,7 +368,8 @@ def decode_step(params: Params, cfg: ModelConfig, caches: Caches,
     x = embed_tokens(params, cfg, token)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     ctx = LayerCtx(cfg=cfg, positions=positions, causal=True,
-                   window=cfg.sliding_window, pos=pos)
+                   window=cfg.sliding_window, pos=pos,
+                   moe_group_size=moe_group_size)
     for i, st in enumerate(cfg.stages):
         x, _, _ = stage_apply(params[f"dec{i}"], st, x, ctx,
                               caches=caches[f"dec{i}"])

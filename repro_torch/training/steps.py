@@ -14,6 +14,7 @@ from typing import Callable, Optional
 import torch
 
 from ..device import resolve_device
+from ..kernels import _shard
 from ..models import model as M
 from ..models.config import ModelConfig
 from .optimizer import AdamWConfig, adamw_update, init_opt_state, \
@@ -26,9 +27,17 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     vocab tail can never be a label (labels < vocab_size), so no extra
     masking of logits is needed for the loss.  Log-sum-exp in f32."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels.clamp(min=0).long()[..., None])[..., 0]
+    ids = labels.clamp(min=0).long()
+    if _shard.is_dtensor(logits):
+        # vocab-parallel: a max and a sum over the vocab shards, and each
+        # shard picks the labels in its range (DTensor's logsumexp and
+        # gather would gather the logits)
+        top = logits.amax(dim=-1, keepdim=True).detach()
+        logz = (logits - top).exp().sum(dim=-1).log() + top[..., 0]
+        gold = _shard.vocab_gather(logits, ids)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ids[..., None])[..., 0]
     mask = (labels >= 0).float()
     return torch.sum((logz - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
 
@@ -42,7 +51,9 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
     logits, aux = M.forward(params, cfg, batch, remat=remat,
                             moe_group_size=moe_group_size)
     t_text = batch["labels"].shape[1]
-    ce = cross_entropy(logits[:, -t_text:, :], batch["labels"],
+    if t_text < logits.shape[1]:         # the modality positions have none
+        logits = logits[:, -t_text:, :]
+    ce = cross_entropy(logits, batch["labels"],
                        cfg.vocab_size)
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -110,32 +121,52 @@ def init_train_state(cfg: ModelConfig, seed: int = 0,
     return params, init_opt_state(opt, params)
 
 
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """argmax over the last axis of [B, V] logits; a DTensor's shards run it
+    with the vocab gathered and the batch left as it is sharded."""
+    if _shard.is_dtensor(logits):
+        return _shard.local_call(_greedy, (logits,), ((0, None),),
+                                 ((0, None),))
+    return torch.argmax(logits, dim=-1)
+
+
+def _to(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t`` on ``dev``, left as it is where it lies there already (a
+    DTensor's move is an op it refuses under inference mode)."""
+    return t if t.device == dev else t.to(dev)
+
+
 def make_prefill_step(cfg: ModelConfig, cache_len: int, *,
+                      moe_group_size: int = 256,
                       device: str | torch.device = "cuda") -> Callable:
     """The prompt's prefill: ``batch`` as ``model.forward`` takes it (tokens,
-    and a modality model's ``modality_emb``), moved to the device."""
+    and a modality model's ``modality_emb``), moved to the device; the
+    caches it fills are fresh ones unless ``caches`` are given (the dry
+    run gives them sharded)."""
     dev = resolve_device(device)
 
     @torch.inference_mode()
-    def prefill_step(params, batch):
-        batch = {name: val.to(dev) for name, val in batch.items()}
-        logits, caches = M.prefill(params, cfg, batch, cache_len)
-        next_token = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1)
+    def prefill_step(params, batch, caches=None):
+        batch = {name: _to(val, dev) for name, val in batch.items()}
+        logits, caches = M.prefill(params, cfg, batch, cache_len,
+                                   moe_group_size=moe_group_size,
+                                   caches=caches)
+        next_token = _greedy(logits[:, -1, : cfg.vocab_size])
         return next_token.to(torch.int32), caches
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, *,
+def make_serve_step(cfg: ModelConfig, *, moe_group_size: int = 256,
                     device: str | torch.device = "cuda") -> Callable:
     """ONE new token against the KV caches (the decode shapes)."""
     dev = resolve_device(device)
 
     @torch.inference_mode()
     def serve_step(params, caches, token, pos: int):
-        logits, caches = M.decode_step(params, cfg, caches, token.to(dev),
-                                       pos)
-        next_token = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1)
+        logits, caches = M.decode_step(params, cfg, caches, _to(token, dev),
+                                       pos, moe_group_size=moe_group_size)
+        next_token = _greedy(logits[:, -1, : cfg.vocab_size])
         return next_token.to(torch.int32)[:, None], caches
 
     return serve_step

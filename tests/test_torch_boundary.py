@@ -4,6 +4,7 @@ its entry points refuse to run on a missing card instead of falling
 back to the CPU, and no kernel wrapper returns a result that silently
 drops the gradient."""
 import ast
+import contextlib
 import subprocess
 import sys
 from pathlib import Path
@@ -157,24 +158,45 @@ def test_engine_refuses_params_on_another_device():
         PreemptiveServingEngine(cfg, params, _cost(), device="meta")
 
 
-def test_kernel_wrappers_do_not_fall_back_off_the_cpu():
-    """Only CPU tensors take the plain version: any other device launches
-    the kernel or raises (here: meta tensors, which no kernel takes)."""
+def _no_plain_versions(monkeypatch):
+    """Make every kernel's plain version raise if it is called."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran off the CPU")
+
+    for mod, names in ((decode_ops, ("decode_attention_ref",)),
+                       (flash_ops, ("flash_attention_ref",
+                                    "flash_attention_bwd_ref")),
+                       (slstm_ops, ("slstm_scan_ref", "slstm_scan_saving_ref",
+                                    "slstm_scan_bwd_ref"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+
+
+def test_kernel_wrappers_do_not_fall_back_off_the_cpu(monkeypatch):
+    """Only CPU tensors take the plain version.  Meta tensors (the dry
+    run's abstract shards) launch nothing: the wrappers with a meta branch
+    return empty meta outputs of the kernel's shapes without running the
+    plain version and count no launch; the halo conv, which has none,
+    raises as any device but CPU and CUDA does."""
+    _no_plain_versions(monkeypatch)
     q = torch.empty((1, 4, 8), device="meta")
     kv = torch.empty((1, 16, 2, 8), device="meta")
     pos = torch.empty((1, 16), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="needs CUDA"):
-        decode_attention(q, kv, kv, pos, 3)
+    out = decode_attention(q, kv, kv, pos, 3)
+    assert out.device.type == "meta" and out.shape == q.shape
     q4 = torch.empty((1, 5, 4, 8), device="meta")
     k4 = torch.empty((1, 5, 2, 8), device="meta")
     p = torch.empty((5,), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="needs CUDA"):
-        flash_attention(q4, k4, k4, p, p)
+    out = flash_attention(q4, k4, k4, p, p)
+    assert out.device.type == "meta" and out.shape == q4.shape
     wx = torch.empty((1, 3, 4, 2, 8), device="meta")
     r = torch.empty((4, 2, 8, 8), device="meta")
     b = torch.empty((4, 2, 8), device="meta")
-    with pytest.raises(ValueError, match="needs CUDA"):
-        slstm_scan(wx, r, b)
+    hs, final = slstm_scan(wx, r, b)
+    assert hs.device.type == "meta" and hs.shape == (1, 3, 2, 8)
+    assert [tuple(s.shape) for s in final] == [(1, 2, 8)] * 4
     tiles = torch.empty((4, 10, 10, 3), device="meta")
     w = torch.empty((3, 3, 3, 5), device="meta")
     with pytest.raises(ValueError, match="needs CUDA"):
@@ -200,14 +222,22 @@ def _meta_inputs(requires_grad: bool):
 def test_wrappers_without_backward_refuse_inputs_that_need_grad(name):
     """A kernel without a backward raises on inputs off the CPU that
     require grad while grad mode is on, instead of returning an output
-    with no ``grad_fn``; without grad it goes on to its device checks."""
+    with no ``grad_fn``; without grad it goes on: decode attention to its
+    meta branch (an empty output, no launch), the halo conv to its device
+    checks."""
     with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel has "
                        "no backward"):
         _meta_inputs(True)[name]()
-    with torch.no_grad(), pytest.raises(ValueError, match="needs CUDA"):
-        _meta_inputs(True)[name]()
-    with pytest.raises(ValueError, match="needs CUDA"):
-        _meta_inputs(False)[name]()
+    for requires_grad, ctx in ((True, torch.no_grad),
+                               (False, contextlib.nullcontext)):
+        with ctx():
+            if name == "halo_conv2d":
+                with pytest.raises(ValueError, match="needs CUDA"):
+                    _meta_inputs(requires_grad)[name]()
+            else:
+                out = _meta_inputs(requires_grad)[name]()
+                assert out.device.type == "meta" and out.shape == (1, 4, 8)
+    assert decode_attention.launches == 0
 
 
 def test_flash_attention_needing_grad_goes_through_its_backward(
@@ -226,8 +256,8 @@ def test_flash_attention_needing_grad_goes_through_its_backward(
     p = torch.empty((5,), dtype=torch.int32, device="meta")
     monkeypatch.setattr(flash_ops.FlashAttentionFn, "apply", spy)
     assert flash_attention(q, k, k, p, p) == "through the Function"
-    with torch.no_grad(), pytest.raises(ValueError, match="needs CUDA"):
-        flash_attention(q, k, k, p, p)
+    with torch.no_grad():                  # the meta branch, no Function
+        assert flash_attention(q, k, k, p, p).device.type == "meta"
     assert len(calls) == 1
     monkeypatch.undo()
     qc = torch.randn((1, 5, 4, 8), requires_grad=True)
@@ -253,12 +283,13 @@ def test_slstm_scan_needing_grad_goes_through_its_backward(monkeypatch):
     monkeypatch.setattr(slstm_ops.SLSTMScanFn, "apply", spy)
     hs, final = slstm_scan(wx, r, b)
     assert hs == "through the Function" and len(final) == 4
-    with torch.no_grad(), pytest.raises(ValueError, match="needs CUDA"):
-        slstm_scan(wx, r, b)
+    with torch.no_grad():                  # the meta branch, no Function
+        assert slstm_scan(wx, r, b)[0].device.type == "meta"
     assert len(calls) == 1
     monkeypatch.undo()
-    with pytest.raises(ValueError, match="needs CUDA"):
-        slstm_scan(wx, r, b)               # the Function's forward checks
+    hs, _ = slstm_scan(wx, r, b)           # the Function's meta forward
+    assert type(hs.grad_fn).__name__ == "SLSTMScanFnBackward"
+    assert hs.device.type == "meta"
     wxc = torch.randn((1, 3, 4, 2, 8), requires_grad=True)
     rc = torch.randn((4, 2, 8, 8)) * 8 ** -0.5
     hs, _ = slstm_scan(wxc, rc, torch.zeros((4, 2, 8)))
