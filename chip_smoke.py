@@ -66,6 +66,30 @@ first fault (the script exits 0 only if every phase passed):
              CUDA-graph replay and records one of each under
              ``torch.profiler``, printing the kernels that take the most
              device time.
+     churn   full-width qwen2-0.5b serves the same mix on 4 slices: once
+             as above, recording its slots (and, at each LP slot's
+             midpoint, which slices have room), then with slices failing,
+             draining and rejoining at times placed on the recorded
+             timelines: the slice of the first HP request fails while the
+             request is reserved there and rejoins an HP slot later (a run
+             with this failure alone records the timeline the rest is
+             placed on); later the slice running an LP decode (its home
+             slice where one has room) fails at the decode's midpoint, a
+             third slice drains, and the failed slice rejoins.  Orphans
+             restart their prefill (flash) and decode (decode attention)
+             elsewhere.  Checks every request settled, HP requests done or
+             counted as failed admissions, orphans created (at least 2)
+             and recovered (at least 1), re-placed requests' tokens equal
+             to the first run's, launches exact with the restarts, the
+             decode kernel's counters at rest, and the engine's device
+             memory freed once it is dropped.
+     sim     the port's host runtimes on this machine's Python: the
+             paper's testbed scenarios (UPS, UNPS, WPS_4, WNPS_4, DPW,
+             DNPW, CPW, CNPW) at 1296 frames, each equal to the JAX
+             package's numbers; the chaos scenarios smoke and churn_mixed
+             and the degrade storm's smoke with their gates; 20,000
+             firehose requests through ``StreamingEngine`` on 64 devices,
+             every task settled and the RSS flat.
   4. model   the models the engine does not serve (it passes tokens only):
              deepseek-7b, seamless-m4t-medium (12 encoder + 12
              cross-attending decoder layers over 16 frames), llava-next-34b
@@ -126,6 +150,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import shutil
 import socket
@@ -133,6 +158,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 from contextlib import contextmanager
 from dataclasses import replace
 from pathlib import Path
@@ -147,7 +173,9 @@ from repro_torch.checkpoint import store
 from repro_torch.configs import get_config
 from repro_torch.configs.shapes import SHAPES, InputShape
 from repro_torch.data import train_batches
-from repro_torch.core.task import Priority
+from repro_torch.core.network import NetworkConfig
+from repro_torch.core.profiles import TaskProfile, WorkloadSpec
+from repro_torch.core.task import Priority, reset_id_counters
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref)
@@ -183,6 +211,10 @@ from repro_torch.models.layers import xlstm as X
 from repro_torch.serving.cost_model import measure_cost_model
 from repro_torch.serving.engine import (PreemptiveServingEngine,
                                         ServeRequest, engine_network_config)
+from repro_torch.serving.stream import StreamingEngine
+from repro_torch.sim import (CHAOS_SCENARIOS, SCENARIOS, FirehoseConfig,
+                             chaos_gate, firehose, run_chaos, run_scenario)
+from repro_torch.sim import degrade_storm as storm
 from repro_torch.training import steps as TS
 from repro_torch.training.optimizer import AdamWConfig, tree_leaves
 from repro_torch.training.steps import (init_train_state, loss_and_grads,
@@ -1388,11 +1420,13 @@ def _launches() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def _engine_run(cfg, params, cost) -> tuple:
+def _engine_run(cfg, params, cost, setup=None) -> tuple:
     """The request mix (``N_REQUESTS``, 2:1 HP:LP, prompts from seed 1)
     through ``PreemptiveServingEngine`` with 4 slices x 4 units on
     ``params``, its slots from ``cost`` -> (requests, metrics, each
-    kernel's launches, prefills, decode tokens, wall s)."""
+    kernel's launches, prefills, decode tokens, wall s).  ``setup``, where
+    given, is called with the engine once the requests are queued (the
+    churn phase's probes and events)."""
     net = engine_network_config(cost, LP_TOKENS)
     eng = PreemptiveServingEngine(cfg, params, cost, device="cuda",
                                   n_slices=4, units_per_slice=4,
@@ -1419,6 +1453,8 @@ def _engine_run(cfg, params, cost) -> tuple:
             home_slice=i % 4)
         reqs.append(req)
         eng.q.push(arrive, lambda r=req: eng.submit(r))
+    if setup is not None:
+        setup(eng)
 
     _reset_launches()
     t0 = time.perf_counter()
@@ -1740,6 +1776,386 @@ def _check_xlstm_logits(cfg, params, prompt) -> None:
     _compare_logits("[serve]", f"{cfg.name} one superblock card vs CPU",
                     _logits(one, small, batch, "cuda"),
                     _logits(one, _tree_to(small, "cpu"), batch, "cpu"))
+
+
+# --------------------------------------------------------------------------- #
+# Phase 3b: slice churn through the engine                                    #
+# --------------------------------------------------------------------------- #
+
+
+CHURN_ARCH = "qwen2-0.5b"
+CHURN_SLICES = 4                      # _engine_run's engine: 4 slices x 4
+CHURN_ROOM = 1.25                     # room sought for a re-placed orphan,
+#                                       in LP slots of the fewest units
+
+
+def churn_probe(eng, slots: list) -> None:
+    """Record each slot of ``eng`` into ``slots`` as it begins: priority,
+    slice, home slice and window.  At an LP slot's midpoint an event reads the calendars (it
+    decides nothing): whether the slot is still reserved (``alive``) and
+    which other slices could take one more LP slot of the fewest units from
+    then on (``room``)."""
+    run_compute = eng._run_compute
+    units = eng.net.lp_core_options[0]
+    span = CHURN_ROOM * eng.net.lp_slot_time(units)
+    devices = eng.state.devices
+
+    def record(task) -> None:
+        slot = {"hp": task.priority == Priority.HIGH, "slice": task.device,
+                "home": task.source_device, "t_start": task.t_start,
+                "t_end": task.t_end}
+        slots.append(slot)
+        if not slot["hp"]:
+            dev, mid = task.device, 0.5 * (task.t_start + task.t_end)
+
+            def look() -> None:
+                slot["alive"] = devices[dev].get(task) is not None
+                slot["room"] = [d.device for d in devices
+                                if d.is_up and d.device != dev
+                                and d.fits(mid, mid + span, units)]
+            eng.q.push(mid, look)
+        run_compute(task)
+    eng._run_compute = record
+
+
+def _mid(slot: dict) -> float:
+    return 0.5 * (slot["t_start"] + slot["t_end"])
+
+
+def _room_lp(slots: list) -> list:
+    """The LP slots of ``slots`` still reserved at their midpoint that found
+    room on another slice there (an orphan of theirs can be re-placed)."""
+    return [s for s in slots if not s["hp"] and s.get("alive")
+            and s.get("room")]
+
+
+def place_hp_failure(slots: list) -> list:
+    """The first failure of the churn schedule, placed on the slots of a
+    run without churn (:func:`churn_probe`): the slice of the first HP slot
+    fails at its midpoint, while the HP request is reserved there, and
+    rejoins one HP slot later -> ``[(virtual s, kind, slice)]``."""
+    hp = [s for s in slots if s["hp"]]
+    if not hp:
+        raise AssertionError("no HP slot")
+    slot = min(hp, key=_mid)
+    t = _mid(slot)
+    return [(t, "fail", slot["slice"]),
+            (t + slot["t_end"] - slot["t_start"], "rejoin", slot["slice"])]
+
+
+def place_churn(slots: list, hp_failure: list, n_slices: int) -> list:
+    """The churn schedule -> ``[(virtual s, kind, slice)]``, from
+    ``hp_failure`` (:func:`place_hp_failure`) and the slots of a run with
+    it alone: after it, the slice running the first LP slot (a local one
+    first: its home slice) on another slice that is still reserved at its
+    midpoint and finds room on another slice there (its orphans can be
+    re-placed) fails at that midpoint; a third slice drains just after;
+    the LP slot's slice rejoins an HP slot later."""
+    (t2, _, s2), (back2, _, _) = hp_failure
+    lp = [s for s in _room_lp(slots) if s["slice"] != s2 and _mid(s) > t2]
+    if not lp:
+        raise AssertionError(f"no LP slot off slice {s2} finds room on "
+                             f"another slice after {t2}")
+    first = min(lp, key=lambda s: (s["slice"] != s["home"], _mid(s)))
+    s1, t1 = first["slice"], _mid(first)
+    s3 = next(i for i in range(n_slices) if i not in (s1, s2))
+    return sorted(hp_failure + [(t1, "fail", s1), (t1 + 1e-3, "drain", s3),
+                                (t1 + back2 - t2, "rejoin", s1)])
+
+
+def placed_churn(run, n_slices: int) -> tuple:
+    """The churn schedule placed on two runs of the same mix: ``run(setup)``
+    serves it with ``setup`` called on the engine and returns its result.
+    The first run has no churn (:func:`place_hp_failure` reads its slots),
+    the second the HP failure alone (:func:`place_churn` reads its slots)
+    -> (schedule, the first run's result, the second's)."""
+    slots, slots2 = [], []
+    base = run(lambda eng: churn_probe(eng, slots))
+    hp_failure = place_hp_failure(slots)
+    hooks = churn_events(hp_failure, [])
+
+    def setup(eng) -> None:
+        churn_probe(eng, slots2)
+        hooks(eng)
+    second = run(setup)
+    return place_churn(slots2, hp_failure, n_slices), base, second
+
+
+def churn_events(events: list, lost: list):
+    """A ``setup`` for :func:`_engine_run` (any engine with the same
+    slice-churn calls) that queues ``events``; each failure appends to
+    ``lost`` its time, slice, orphans as ``(request, state before the
+    failure)`` and the requests re-placed at once."""
+    def setup(eng) -> None:
+        def fire(kind: str, idx: int) -> None:
+            if kind != "fail":
+                (eng.drain_slice if kind == "drain" else
+                 eng.rejoin_slice)(idx)
+                return
+            state = {r.rid: r.state for r in eng._by_task.values()}
+            dec = eng.fail_slice(idx)
+            orphans = [eng._by_task[t] for t in dec.preempted]
+            lost.append({"t": eng.q.now, "slice": idx,
+                         "orphans": [(r, state[r.rid]) for r in orphans],
+                         "replaced": [eng._by_task[a.task]
+                                      for a in dec.reallocations]})
+        for t, kind, idx in events:
+            eng.q.push(t, lambda kind=kind, idx=idx: fire(kind, idx))
+    return setup
+
+
+def phase_churn() -> None:
+    """Full-width qwen2-0.5b serving the request mix as in ``[serve]``,
+    without churn, then with slices failing, draining and rejoining at
+    times placed on the timelines of that run and of one with the first
+    failure alone (:func:`placed_churn`).  A request that
+    lost its slice restarts its prefill (the flash kernel) and decode (the
+    decode kernel) elsewhere.  Checks every request settled, HP requests
+    done or counted as failed admissions, orphans created and recovered,
+    recovered requests' tokens equal to the first run's (greedy decoding
+    of the same prompt and weights), exact launches with the restarts,
+    the decode kernel's counters at rest, and the engine's device memory
+    freed once it is dropped (orphaned caches do not leak)."""
+    cfg = get_config(CHURN_ARCH)
+    cost = measure_cost_model(cfg, prompt_len=PROMPT_LEN,
+                              cache_len=CACHE_LEN, reps=3, device="cuda")
+    gc.collect()
+    params = M.init_params(cfg, 0, device="cuda")
+    print(f"[churn] {cfg.name} cost model: prefill {cost.prefill[1]}, "
+          f"decode {cost.decode}")
+    events, (base, m0, _, pre0, tok0, wall0), second = placed_churn(
+        lambda setup: _engine_run(cfg, params, cost, setup=setup),
+        CHURN_SLICES)
+    print(f"[churn] {cfg.name} run without churn {wall0:.2f} s wall: "
+          f"{sum(r.state == 'done' for r in base)}/{len(base)} done, "
+          f"{pre0} prefills, {tok0} decode tokens, {m0.preemptions} "
+          f"preemptions; with the HP failure alone {second[5]:.2f} s wall")
+    print("[churn] schedule (virtual s, kind, slice): " + ", ".join(
+        f"{t:.6f} {kind} {idx}" for t, kind, idx in events))
+    lost, engines = [], []
+    hooks = churn_events(events, lost)
+
+    def setup(eng) -> None:
+        engines.append(weakref.ref(eng))
+        hooks(eng)
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    reqs, m, launches, pre, tok, wall = _engine_run(cfg, params, cost,
+                                                    setup=setup)
+    gc.collect()                        # the engine's own reference cycles
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    summary = m.summary()
+    print(f"[churn] {cfg.name} churn run {wall:.2f} s wall: "
+          f"{sum(r.state == 'done' for r in reqs)}/{len(reqs)} done, "
+          f"{pre} prefills, {tok} decode tokens; summary "
+          + json.dumps(summary, default=str))
+    index = {r.rid: i for i, r in enumerate(reqs)}
+    for f in lost:
+        print(f"[churn] slice {f['slice']} failed at {f['t']:.6f}: orphans "
+              + ", ".join(f"#{index[r.rid]} {r.priority.name} (was "
+                          f"{was})" for r, was in f["orphans"])
+              + "; re-placed at once: "
+              + (", ".join(f"#{index[r.rid]}" for r in f["replaced"])
+                 or "none"))
+    if [f["slice"] for f in lost] != [e[2] for e in events
+                                      if e[1] == "fail"]:
+        raise AssertionError(f"failures {lost}, scheduled {events}")
+    if not any(r.priority == Priority.HIGH for r, _ in lost[0]["orphans"]):
+        raise AssertionError("the first failure orphaned no HP request")
+    if not any(r.priority == Priority.LOW and was == "running"
+               for r, was in lost[1]["orphans"]):
+        raise AssertionError("the second failure orphaned no running LP "
+                             "decode")
+    unresolved = [(index[r.rid], r.state) for r in reqs
+                  if r.state not in ("done", "failed")]
+    hp = [r for r in reqs if r.priority == Priority.HIGH]
+    hp_failed = sum(r.state == "failed" for r in hp)
+    print(f"[churn] unresolved {len(unresolved)}; HP "
+          f"{len(hp) - hp_failed}/{len(hp)} done, {hp_failed} failed "
+          f"(hp_failed_alloc {m.hp_failed_alloc}); orphans created "
+          f"{m.orphans_created}, recovered {m.orphans_recovered}")
+    if unresolved:
+        raise AssertionError(f"requests not settled: {unresolved}")
+    if hp_failed != m.hp_failed_alloc or m.hp_failed_runtime or \
+            len(hp) - hp_failed != m.hp_completed:
+        raise AssertionError(f"HP outcomes {[r.state for r in hp]} vs "
+                             f"{summary}")
+    if m.orphans_created < 2 or m.orphans_recovered < 1:
+        raise AssertionError(f"orphans created {m.orphans_created}, "
+                             f"recovered {m.orphans_recovered}")
+    recovered = {r.rid: r for f in lost for r in f["replaced"]
+                 if r.state == "done"}
+    if not recovered:
+        raise AssertionError("no re-placed orphan finished")
+    for rid, r in recovered.items():
+        want = base[index[rid]]
+        if want.state != "done" or r.tokens_out != want.tokens_out:
+            raise AssertionError(
+                f"recovered request #{index[rid]}: tokens {r.tokens_out}, "
+                f"without churn {want.state} {want.tokens_out}")
+    print(f"[churn] recovered requests "
+          + ", ".join(f"#{index[rid]}" for rid in recovered)
+          + f": {sum(len(r.tokens_out) for r in recovered.values())} "
+          "tokens, bit-equal to the run without churn")
+    want = _expected_launches(cfg, pre, tok)
+    print(f"[churn] kernel launches in the churn run ({pre} prefills, "
+          f"{tok} decode tokens, restarts included; {pre0} and {tok0} "
+          "without churn): " + ", ".join(f"{k}={v}" for k, v in
+                                         launches.items() if v))
+    if launches != want or not launches["flash_attention"]:
+        raise AssertionError(f"kernel launches {launches}, expected {want}")
+    _counters_at_rest("the churn run")
+    print("[churn] decode_attention counters at rest after the churn run")
+    print(f"[churn] device memory allocated {before} B before the churn "
+          f"run, {after} B once its engine is dropped")
+    if engines[0]() is not None:
+        raise AssertionError("the churn run's engine is still referenced")
+    if after != before:
+        raise AssertionError(f"device memory {after - before:+d} B after "
+                             "the churn run")
+
+
+# --------------------------------------------------------------------------- #
+# Phase 3c: the host runtimes                                                 #
+# --------------------------------------------------------------------------- #
+
+
+SIM_SCENARIOS = ("UPS", "UNPS", "WPS_4", "WNPS_4", "DPW", "DNPW", "CPW",
+                 "CNPW")
+# (HP %, frames %, preemptions, victim reallocations) of each paper
+# scenario at its 1296 frames, as the JAX package's run_scenario gives them
+# (tests/test_torch_sim.py holds this table against it)
+PAPER_1296 = {
+    "UPS": (99.29, 52.1, 491, 0),
+    "UNPS": (83.36, 48.28, 0, 0),
+    "WPS_4": (99.29, 26.95, 224, 0),
+    "WNPS_4": (82.81, 26.85, 0, 0),
+    "DPW": (100.0, 14.8, 4618, 0),
+    "DNPW": (80.7, 22.7, 0, 0),
+    "CPW": (100.0, 13.06, 4608, 0),
+    "CNPW": (81.23, 18.87, 0, 0),
+}
+SIM_CHAOS = ("smoke", "churn_mixed")
+STREAM_REQUESTS = 20_000
+STREAM_DEVICES = 64
+STREAM_RSS_GROWTH = 32 * 2**20        # benchmarks/soak.py's absolute gate
+#                                       (not its 10 %: this process holds
+#                                       torch and the card's context)
+
+
+def stream_network() -> NetworkConfig:
+    """Serve-style slots (sub-second tasks, a 5 GB/s shared link), as
+    benchmarks/soak.py times its soak."""
+    prof = TaskProfile(name="serve", hp_exec=0.020, hp_pad=0.002,
+                       lp_exec={2: 0.200, 4: 0.120},
+                       lp_pad={2: 0.010, 4: 0.008}, input_bytes=21500,
+                       output_bytes=550, hp_deadline_slack=0.50,
+                       lp_deadline=5.0)
+    spec = WorkloadSpec(name="soak_serve", profiles={"serve": prof},
+                        default_type="serve")
+    return NetworkConfig(throughput_bps=5e9, jitter_pad_s=2e-5,
+                         workload=spec)
+
+
+def _rss() -> int:
+    with open("/proc/self/statm") as fh:
+        return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _stream_soak() -> None:
+    """``STREAM_REQUESTS`` firehose arrivals through ``StreamingEngine`` on
+    ``STREAM_DEVICES`` devices (soak's smoke shape: 4.8 arrivals a device
+    a second, 50 ms windows); every admitted task settles and the
+    process's RSS stays flat (first quarter of the samples dropped, the
+    early and late halves' means compared)."""
+    reset_id_counters()
+    eng = StreamingEngine(STREAM_DEVICES, net=stream_network(),
+                          queue_capacity=8192, shed="reject_cheapest",
+                          window=0.05)
+    fire = FirehoseConfig(name="soak", n_devices=STREAM_DEVICES,
+                          rate=4.8 * STREAM_DEVICES, lp_fraction=0.4,
+                          lp_set_sizes=(1, 2, 3, 4), seed=0)
+    rss = [_rss()]
+
+    def on_window(e) -> None:
+        if e.telemetry.windows % 4 == 0:
+            rss.append(_rss())
+    t0 = time.perf_counter()
+    report = eng.run(firehose(fire, limit=STREAM_REQUESTS),
+                     on_window=on_window)
+    wall = time.perf_counter() - t0
+    rss.append(_rss())
+    tail = rss[len(rss) // 4:]
+    half = max(1, len(tail) // 2)
+    early, late = sum(tail[:half]) / half, sum(tail[-half:]) / half
+    allowed = STREAM_RSS_GROWTH
+    m, tel = report["metrics"], report["telemetry"]
+    print(f"[sim] stream {STREAM_REQUESTS} requests on {STREAM_DEVICES} "
+          f"devices in {wall:.2f} s ({STREAM_REQUESTS / wall:.0f} "
+          f"requests/s host): HP {m['hp_completion_pct']} %, LP "
+          f"{m['lp_completion_pct']} %, shed {tel['shed_total']}, "
+          f"unresolved {report['unresolved']}; RSS {early / 2**20:.1f} -> "
+          f"{late / 2**20:.1f} MB over {len(rss)} samples (allowed growth "
+          f"{allowed / 2**20:.1f} MB)")
+    if report["unresolved"] or report["in_flight"] or report["queued"]:
+        raise AssertionError(f"stream run left work unsettled: {report}")
+    if late - early > allowed:
+        raise AssertionError(f"RSS grew {(late - early) / 2**20:.1f} MB")
+
+
+def phase_sim() -> None:
+    """The port's host runtimes on the card machine's Python: the paper's
+    testbed scenarios at 1296 frames against the JAX package's numbers,
+    the chaos scenarios and the degrade storm with their gates, and a
+    streaming soak.  Each raises on its first failure."""
+    for name in SIM_SCENARIOS:
+        cfg = SCENARIOS[name]
+        t0 = time.perf_counter()
+        s = run_scenario(cfg).summary()
+        got = (s["hp_completion_pct"], s["frame_completion_pct"],
+               s["preemptions"], s["realloc_success"])
+        print(f"[sim] {name} ({cfg.algorithm}, "
+              f"{'preemption' if cfg.preemption else 'no preemption'}, "
+              f"{cfg.trace}) {cfg.n_frames} frames a device x "
+              f"{cfg.n_devices}: HP {got[0]} %, "
+              f"frames {got[1]} %, {got[2]} preemptions, {got[3]} "
+              f"reallocations ({s['realloc_failure']} failed) in "
+              f"{time.perf_counter() - t0:.2f} s")
+        if s["frames_total"] != cfg.n_frames * cfg.n_devices or \
+                got != PAPER_1296[name]:
+            raise AssertionError(f"{name}: {got}, the JAX package gives "
+                                 f"{PAPER_1296[name]}")
+    for name in SIM_CHAOS:
+        cfg = CHAOS_SCENARIOS[name]
+        t0 = time.perf_counter()
+        res = run_chaos(cfg)
+        failures = chaos_gate(res, cfg)
+        print(f"[sim] chaos {name}: {cfg.n_devices} devices, failed "
+              f"{res['devices_failed']}, drained {res['devices_drained']}, "
+              f"rejoined {res['devices_rejoined']}, orphans "
+              f"{res['orphans_created']}, recovered "
+              f"{res['orphans_recovered']}, HP {res['hp_completion_pct']} "
+              f"%, unresolved {res['unresolved']} in "
+              f"{time.perf_counter() - t0:.2f} s; gate "
+              f"{'passed' if not failures else failures}")
+        if failures:
+            raise AssertionError(f"chaos {name}: {failures}")
+    cfg = storm.STORM_SCENARIOS["smoke"]
+    t0 = time.perf_counter()
+    res = storm.run_storm(cfg)
+    failures = storm.storm_gate(res, cfg)
+    print(f"[sim] degrade storm smoke: accuracy-weighted goodput "
+          f"{res['reject_only']['awg_pct']} % rejecting, "
+          f"{res['degrade']['awg_pct']} % degrading (gain "
+          f"{res['awg_gain_pct']}), HP delta {res['hp_delta_pct']}, "
+          f"{res['degrade']['lp_degraded']} degraded in "
+          f"{time.perf_counter() - t0:.2f} s; gate "
+          f"{'passed' if not failures else failures}")
+    if failures:
+        raise AssertionError(f"degrade storm: {failures}")
+    _stream_soak()
 
 
 # --------------------------------------------------------------------------- #
@@ -2668,24 +3084,40 @@ DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun_smoke.jsonl"
 def phase_dryrun() -> None:
     """``python -m repro_torch.launch.dryrun`` over a subset that covers
     each step kind and both production meshes, each as a subprocess (its
-    ``fake`` process group never meets this process's); fails if any
-    combo fails."""
+    ``fake`` process group never meets this process's), all started
+    together; fails if any combo fails."""
     DRYRUN_OUT.parent.mkdir(parents=True, exist_ok=True)
     DRYRUN_OUT.unlink(missing_ok=True)
-    for args in DRYRUN_SUBSET:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
-             "--out", str(DRYRUN_OUT)], cwd=Path(__file__).resolve().parent,
-            capture_output=True, text=True, timeout=600)
-        for line in proc.stdout.splitlines():
-            if line.startswith("[dryrun]"):
-                print(line)
-        print(f"[dryrun] {' '.join(args)}: exit {proc.returncode} in "
-              f"{time.perf_counter() - t0:.1f} s")
-        if proc.returncode != 0:
-            raise AssertionError(f"dry run {args} failed:\n"
-                                 f"{proc.stderr[-3000:]}")
+    runs = []
+    t0 = time.perf_counter()
+    try:
+        for i, args in enumerate(DRYRUN_SUBSET):
+            out = DRYRUN_OUT.with_suffix(f".{i}.jsonl")
+            log = DRYRUN_OUT.with_suffix(f".{i}.log")
+            out.unlink(missing_ok=True)
+            with open(log, "w") as fh:      # files, not pipes: none waits
+                runs.append((args, out, log, subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     *args, "--out", str(out)],
+                    cwd=Path(__file__).resolve().parent, stdout=fh,
+                    stderr=subprocess.STDOUT, text=True)))
+        for args, out, log, proc in runs:
+            proc.wait(timeout=600)
+            text = log.read_text()
+            for line in text.splitlines():
+                if line.startswith("[dryrun]"):
+                    print(line)
+            print(f"[dryrun] {' '.join(args)}: exit {proc.returncode} "
+                  f"within {time.perf_counter() - t0:.1f} s of the start")
+            if proc.returncode != 0:
+                raise AssertionError(f"dry run {args} failed:\n"
+                                     f"{text[-3000:]}")
+    finally:
+        for *_, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    DRYRUN_OUT.write_text("".join(out.read_text() for _, out, _, _ in runs))
     for line in DRYRUN_OUT.read_text().splitlines():
         rec = json.loads(line)
         roof = rec["roofline"]
@@ -2730,6 +3162,12 @@ def main() -> int:
         gc.collect()                        # free this model before the next
         torch.cuda.empty_cache()
         print(f"[time] serve {arch}: {time.perf_counter() - t1:.1f} s")
+    for name, phase in (("churn", phase_churn), ("sim", phase_sim)):
+        t1 = time.perf_counter()
+        phase()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[time] {name}: {time.perf_counter() - t1:.1f} s")
     for arch, keep, cpu_cut in MODELS:
         t1 = time.perf_counter()
         phase_model(arch, keep, cpu_cut)

@@ -28,7 +28,6 @@ as the simulator.  Execution-driving policies are rejected.
 from __future__ import annotations
 
 import itertools
-import math
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -44,50 +43,9 @@ from ..models.config import ModelConfig
 from ..sim.events import EventQueue
 from ..training.steps import make_prefill_step, make_serve_step
 from .cost_model import CostModel
+from .stream import validate_submission
 
 _rid = itertools.count()
-
-
-def validate_submission(
-    *,
-    priority: Priority,
-    deadline: float,
-    now: float = 0.0,
-    n_tasks: int = 1,
-    max_new_tokens: Optional[int] = None,
-    task_type: Optional[str] = None,
-    spec: Optional[WorkloadSpec] = None,
-) -> None:
-    """Reject malformed submissions with a ``ValueError`` naming the field
-    (copy of the JAX package's ``serving/stream.py::validate_submission``):
-    bad requests die at the boundary instead of corrupting calendars deep
-    inside the event loop."""
-    if not isinstance(priority, Priority):
-        raise ValueError(
-            f"priority must be a repro_torch.core.task.Priority, got "
-            f"{priority!r}")
-    if isinstance(deadline, bool) or not isinstance(deadline, (int, float)):
-        raise ValueError(f"deadline must be a number, got {deadline!r}")
-    if math.isnan(deadline):
-        raise ValueError("deadline is NaN")
-    if math.isinf(deadline):
-        raise ValueError("deadline must be finite")
-    if deadline <= now:
-        raise ValueError(
-            f"deadline {deadline:g} is in the past (now={now:g})")
-    if not isinstance(n_tasks, int) or isinstance(n_tasks, bool) \
-            or n_tasks < 1:
-        raise ValueError(f"n_tasks must be a positive int, got {n_tasks!r}")
-    if max_new_tokens is not None and (
-            not isinstance(max_new_tokens, int)
-            or isinstance(max_new_tokens, bool) or max_new_tokens < 1):
-        raise ValueError(
-            f"max_new_tokens must be a positive int, got {max_new_tokens!r}")
-    if task_type is not None and spec is not None:
-        try:
-            spec.profile(task_type)
-        except (KeyError, ValueError) as e:
-            raise ValueError(f"unknown task_type {task_type!r}: {e}") from None
 
 
 def engine_network_config(cost: CostModel, lp_tokens: int,

@@ -37,7 +37,11 @@ COPIES = [f"core/{n}.py" for n in (
     "configs/deepseek_7b.py", "configs/phi3_mini_3_8b.py",
     "configs/llava_next_34b.py", "configs/seamless_m4t_medium.py",
     "configs/deepseek_v2_236b.py", "configs/deepseek_v3_671b.py",
-    "configs/jamba_1_5_large_398b.py", "configs/shapes.py"]
+    "configs/jamba_1_5_large_398b.py", "configs/shapes.py",
+    "core/telemetry.py", "core/calendar_reference.py", "sim/traces.py",
+    "sim/experiment.py", "sim/openended.py", "serving/__init__.py",
+    "sim/churn.py", "sim/chaos.py", "sim/scenarios.py",
+    "sim/degrade_storm.py", "sim/__init__.py"]
 PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
@@ -46,6 +50,45 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 def test_copied_module_is_verbatim(rel):
     assert (PORT / rel).read_bytes() == \
         (REPO / "src" / "repro" / rel).read_bytes()
+
+
+def test_stream_differs_from_jax_only_in_the_priority_message():
+    """``serving/stream.py`` is the JAX file with one string changed:
+    ``validate_submission`` names the port's ``Priority``."""
+    jax_src = (REPO / "src" / "repro" / "serving" / "stream.py").read_text()
+    port_src = (PORT / "serving" / "stream.py").read_text()
+    old = "must be a repro.core.task.Priority"
+    assert jax_src.count(old) == 1
+    assert port_src == jax_src.replace(
+        old, "must be a repro_torch.core.task.Priority")
+
+
+def test_engine_validates_with_the_stream_boundary():
+    """The engine keeps no copy of ``validate_submission``: it is the
+    streaming engine's, as in the JAX package."""
+    from repro_torch.serving import engine, stream
+    assert engine.validate_submission is stream.validate_submission
+    with pytest.raises(ValueError, match=r"must be a "
+                       r"repro_torch\.core\.task\.Priority, got 'high'"):
+        stream.validate_submission(priority="high", deadline=1.0)
+
+
+def test_runtime_planes_import_no_torch():
+    """The scheduler core, the simulators and the streaming engine run
+    without torch (soak and chaos users do not pay its import)."""
+    code = ("import sys\n"
+            "import repro_torch.core, repro_torch.sim, "
+            "repro_torch.serving.stream, repro_torch.sim.chaos, "
+            "repro_torch.sim.degrade_storm\n"
+            "import repro_torch.serving as s\n"
+            "s.StreamingEngine, s.validate_submission\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('torch', 'jax', 'repro'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -100,6 +143,18 @@ TRAINING_MODULES = ["training/__init__.py", "training/optimizer.py",
 
 @pytest.mark.parametrize("rel", TRAINING_MODULES)
 def test_import_check_covers_the_training_modules(rel):
+    assert PORT / rel in PORT_FILES
+
+
+PLANE_MODULES = ["serving/stream.py", "core/telemetry.py",
+                 "core/calendar_reference.py", "sim/traces.py",
+                 "sim/experiment.py", "sim/openended.py", "sim/churn.py",
+                 "sim/chaos.py", "sim/scenarios.py", "sim/degrade_storm.py",
+                 "sim/__init__.py", "serving/__init__.py"]
+
+
+@pytest.mark.parametrize("rel", PLANE_MODULES)
+def test_import_check_covers_the_runtime_planes(rel):
     assert PORT / rel in PORT_FILES
 
 

@@ -265,7 +265,11 @@ def _script(cfg, n_lp=4):
     return out
 
 
-def _run_script(kind, setup, lose_work, n_lp=4):
+def _run_script(kind, setup, lose_work, n_lp=4, probe=None, n_slices=2):
+    """The script through one package's engine on ``n_slices`` slices ->
+    (per-request outcomes, metrics summary).  ``probe``, where given, is
+    called with the engine before it runs (slice churn's events and
+    recorders)."""
     cfg, params, cost, jcfg, jparams = setup
     if kind == "jax":
         jax_task.reset_id_counters()
@@ -273,16 +277,16 @@ def _run_script(kind, setup, lose_work, n_lp=4):
                                    decode=dict(cost.decode))
         net = jax_engine.engine_network_config(jcost, 4)
         eng = jax_engine.PreemptiveServingEngine(
-            jcfg, jparams, jcost, n_slices=2, units_per_slice=4, net=net,
-            lose_work=lose_work)
+            jcfg, jparams, jcost, n_slices=n_slices, units_per_slice=4,
+            net=net, lose_work=lose_work)
         serve_request, prio, mk = jax_engine.ServeRequest, JPriority, \
             jnp.asarray
     else:
         torch_task.reset_id_counters()
         net = engine_network_config(cost, 4)
         eng = PreemptiveServingEngine(
-            cfg, params, cost, device="cpu", n_slices=2, units_per_slice=4,
-            net=net, lose_work=lose_work)
+            cfg, params, cost, device="cpu", n_slices=n_slices,
+            units_per_slice=4, net=net, lose_work=lose_work)
         serve_request, prio, mk = ServeRequest, Priority, torch.from_numpy
     reqs = []
     for at, kw in _script(cfg, n_lp):
@@ -295,6 +299,8 @@ def _run_script(kind, setup, lose_work, n_lp=4):
             home_slice=kw["home_slice"], rid=kw["rid"])
         reqs.append(req)
         eng.q.push(at, lambda r=req: eng.submit(r))
+    if probe is not None:
+        probe(eng)
     m = eng.run()
     outcome = [(r.rid, r.state, r.completed_at, r.n_preemptions,
                 list(r.tokens_out)) for r in reqs]
