@@ -46,7 +46,14 @@ first fault (the script exits 0 only if every phase passed):
              to its largest magnitude), two runs and 16 vs 8 CTAs a
              cluster bit-identical; at T >= 1024 timed beside the plain
              backward, the forward's saving mode and its bound, and the
-             backward launch alone (profiler).
+             backward launch alone (profiler).  Beside each kernel's cases,
+             its model-layout adapter (``cached_decode_attention`` at the
+             serving shape, S=200 and a window of 64; ``mha_attention`` at
+             phi3-mini's heads, T=16 and 200, causal, windowed and
+             unmasked, and one backward; ``slstm_hidden_states`` at
+             xLSTM's, T=16 and 200) in f32 and bf16: bit-equal to the
+             wrapper call it wraps, within the kernel's tolerance of the
+             plain version, one launch a call, both timed.
   3. serve   for each served model with random weights from seed 0 (full
              width; qwen2-0.5b, phi3-mini-3.8b and xlstm-1.3b whole, then
              deepseek-v2-236b cut to its dense layer and two MoE layers):
@@ -177,13 +184,16 @@ from repro_torch.core.network import NetworkConfig
 from repro_torch.core.profiles import TaskProfile, WorkloadSpec
 from repro_torch.core.task import Priority, reset_id_counters
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import (decode_attention,
+from repro_torch.kernels.decode_attention import (cached_decode_attention,
+                                                  decode_attention,
                                                   decode_attention_ref)
 from repro_torch.kernels.decode_attention import ops as decode_ops
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_ref,
-                                                 flash_attention_ref)
+                                                 flash_attention_ref,
+                                                 mha_attention)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.halo_conv2d import (conv_block_ref,
                                              halo_conv_block,
@@ -193,7 +203,8 @@ from repro_torch.kernels.halo_conv2d.ops import _extract_tiles, plan_block
 from repro_torch.kernels.slstm_scan import ops as slstm_ops
 from repro_torch.kernels.slstm_scan import phases as slstm_phases
 from repro_torch.kernels.slstm_scan.ref import param_grads
-from repro_torch.kernels.slstm_scan import (slstm_scan, slstm_scan_bwd,
+from repro_torch.kernels.slstm_scan import (slstm_hidden_states,
+                                            slstm_scan, slstm_scan_bwd,
                                             slstm_scan_bwd_ref,
                                             slstm_scan_ref,
                                             slstm_scan_saving,
@@ -512,13 +523,139 @@ def phase_kernels() -> dict:
     main-path case (float32)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    rows = {"decode_attention": _decode_cases(gen),
-            "flash_attention": _flash_cases(gen)}
+    # the adapters' inputs come from a generator of their own, so the
+    # kernels' cases keep theirs
+    agen = torch.Generator(device="cuda")
+    agen.manual_seed(1)
+    rows = {"decode_attention": _decode_cases(gen)}
+    t_adapters = _timed(_decode_adapter_cases, agen)
+    rows["flash_attention"] = _flash_cases(gen)
+    t_adapters += _timed(_mha_adapter_cases, agen)
     rows["flash_attention_bwd"] = _flash_bwd_cases(gen)
     rows["slstm_scan"] = _slstm_cases(gen)
+    t_adapters += _timed(_slstm_adapter_cases, agen)
     rows["slstm_scan_bwd"] = _slstm_bwd_cases(gen)
     rows["halo_conv2d"] = _halo_cases(gen)
+    print(f"[time] adapter cases: {t_adapters:.1f} s")
     return rows
+
+
+def _timed(fn, *args) -> float:
+    t0 = time.perf_counter()
+    fn(*args)
+    return time.perf_counter() - t0
+
+
+def _one_launch(name: str, label: str, counted, fn):
+    """``fn()``, which must add exactly one to ``counted.launches``."""
+    before = counted.launches
+    out = fn()
+    torch.cuda.synchronize()
+    if counted.launches - before != 1:
+        raise AssertionError(f"{name} {label}: "
+                             f"{counted.launches - before} launches counted "
+                             "for one call, not 1")
+    return out
+
+
+def _adapter_case(name: str, label: str, dtype, counted, adapter, direct,
+                  plain, as_direct=lambda out: out) -> None:
+    """A model-layout adapter against the wrapper call it wraps (bit-equal,
+    ``as_direct`` taking its output to the wrapper's layout), its plain
+    version (the kernel's tolerance) and its launches (one a call); then
+    both calls' device ms by CUDA-graph replay."""
+    got = _one_launch(name, label, counted, adapter)
+    want = _one_launch(name, label, counted, direct)
+    if not torch.equal(as_direct(got), want):
+        raise AssertionError(f"{name} {label}: adapter differs from the "
+                             "direct call")
+    _check(name, label, as_direct(got), plain(), dtype)
+    ms, direct_ms = device_ms(adapter), device_ms(direct)
+    print(f"[kernels] {name} {label} {str(dtype)[6:]}: bit-equal to the "
+          f"direct call, 1 launch a call; adapter_ms={ms:.5f} "
+          f"direct_ms={direct_ms:.5f}")
+
+
+def _decode_adapter_cases(gen) -> None:
+    """``cached_decode_attention`` (q [B, 1, H, D]) at the serving shape,
+    at S=200 (where the JAX adapter takes its oracle: S % 128 != 0) and
+    with a window of 64 over the rotating 256-slot cache."""
+    cases = [("S=256 filled=40 (serving)", 256, 40, 39, 0),
+             ("S=200 filled=200", 200, 200, 199, 0),
+             ("S=256 window=64 rotated pos=300", 256, 0, 300, 64)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, s, n_filled, pos, window in cases:
+            q, k, v, positions, pos, window = _decode_case(
+                s, n_filled, pos, window, dtype, gen)
+            q4 = q[:, None]
+            _adapter_case(
+                "cached_decode_attention", label, dtype, decode_attention,
+                lambda: cached_decode_attention(q4, k, v, positions, pos,
+                                                window=window),
+                lambda: decode_attention(q, k, v, positions, pos,
+                                         window=window),
+                lambda: decode_attention_ref(q, k, v, positions, pos,
+                                             window=window),
+                as_direct=lambda out: out[:, 0])
+            _counters_at_rest(f"cached_decode_attention {label}")
+
+
+def _mha_adapter_cases(gen) -> None:
+    """``mha_attention`` at phi3-mini's heads (H = KV = 32, D = 96), T=16
+    and T=200 (where the JAX adapter takes its oracle: T % bq != 0),
+    causal, windowed (64) and unmasked; then one backward through the
+    adapter against the direct ``FlashAttentionFn`` gradients (bit-equal)
+    and the plain backward."""
+    phi3 = dict(h=32, kv=32, d=96)
+    for dtype in (torch.float32, torch.bfloat16):
+        for t in (16, 200):
+            q, k, v, p, _ = _flash_case(t, dtype, gen, **phi3)
+            for mask, causal, window in (("causal", True, 0),
+                                         ("window=64", True, 64),
+                                         ("unmasked", False, 0)):
+                _adapter_case(
+                    "mha_attention", f"phi3-mini heads T={t} {mask}", dtype,
+                    flash_attention,
+                    lambda: mha_attention(q, k, v, causal=causal,
+                                          window=window),
+                    lambda: flash_attention(q, k, v, p, p, causal=causal,
+                                            window=window),
+                    lambda: flash_attention_ref(q, k, v, p, p,
+                                                causal=causal,
+                                                window=window))
+    label = "phi3-mini heads T=200 causal backward"
+    q, k, v, p, _ = _flash_case(200, torch.float32, gen, **phi3)
+    d_out = torch.randn(q.shape, generator=gen, device="cuda")
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = _one_launch("mha_attention", label, flash_attention,
+                      lambda: mha_attention(*leaves))
+    got = _one_launch("mha_attention", label, flash_attention_bwd,
+                      lambda: torch.autograd.grad(out, leaves, d_out))
+    out_direct = FlashAttentionFn.apply(*leaves, p, p, True, 0)
+    want = torch.autograd.grad(out_direct, leaves, d_out)
+    if not torch.equal(out, out_direct) or not all(
+            torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"mha_attention {label}: gradients differ "
+                             "from the direct FlashAttentionFn call")
+    plain = flash_attention_bwd_ref(q, k, v, p, p, out.detach(), d_out)
+    _rel_check("mha_attention", label, ("dq", "dk", "dv"), got, plain,
+               torch.float32)
+    print(f"[kernels] mha_attention {label} float32: dq, dk, dv bit-equal "
+          "to the direct FlashAttentionFn call, 1 forward + 1 backward "
+          "launch")
+
+
+def _slstm_adapter_cases(gen) -> None:
+    """``slstm_hidden_states`` at xLSTM's sLSTM (B=1, H=4, dh=512) from the
+    zero state, T=16 and T=200."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for t in (16, 200):
+            wx, r, bias, _ = _slstm_inputs(1, t, False, dtype, gen)
+            _adapter_case(
+                "slstm_hidden_states", f"B=1 T={t} zero state", dtype,
+                slstm_scan, lambda: slstm_hidden_states(wx, r, bias),
+                lambda: slstm_scan(wx, r, bias)[0],
+                lambda: slstm_scan_ref(wx, r, bias)[0])
 
 
 def _report(name: str, label: str, dtype, ms: float, plain: float,

@@ -138,3 +138,24 @@ def decode_attention(
 
 
 decode_attention.launches = 0
+
+
+def cached_decode_attention(
+    q: torch.Tensor,            # [B, 1, H, D] (model layout, one token)
+    cache_k: torch.Tensor,      # [B, S, KV, D]
+    cache_v: torch.Tensor,
+    positions: torch.Tensor,    # [B, S] int32
+    pos,                        # host int or 0-d tensor
+    *,
+    window: int = 0,
+) -> torch.Tensor:
+    """Decode attention against the model's cache layout -> [B, 1, H, D]:
+    :func:`decode_attention` on the token's queries.  A test-only parity
+    shim of the JAX adapter of the same name; no path of the port calls it.
+    The kernel takes any S, so no cache length falls back to the plain
+    version, and the JAX adapter's Pallas switches (``use_pallas``,
+    ``interpret``) are not taken: CUDA tensors always launch the kernel,
+    CPU tensors take the plain version.  The oracle is
+    :func:`.ref.decode_attention_ref`."""
+    return decode_attention(q[:, 0], cache_k, cache_v, positions, int(pos),
+                            window=window)[:, None]

@@ -516,3 +516,24 @@ def flash_attention_bwd(
 
 
 flash_attention_bwd.launches = 0
+
+
+def mha_attention(
+    q: torch.Tensor,            # [B, T, H, D]
+    k: torch.Tensor,            # [B, T, H, D]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """Self-attention of a T-token sequence in the model's layout -> [B, T,
+    H, D]: :func:`flash_attention` at positions 0..T-1 (unmasked with
+    ``causal=False``, where ``window`` is ignored), differentiable as it is.
+    A test-only parity shim of the JAX adapter of the same name; no path of
+    the port calls it.  The kernel takes the model's layout and any T, so
+    nothing is transposed and no length falls back to the plain version,
+    and the JAX adapter's Pallas switches (``use_pallas``, ``interpret``)
+    are not taken: CUDA tensors always launch the kernel, CPU tensors take
+    the plain version.  The oracle is :func:`.ref.attention_ref`."""
+    p = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
+    return flash_attention(q, k, v, p, p, causal=causal, window=window)

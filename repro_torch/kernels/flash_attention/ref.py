@@ -41,6 +41,19 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return gqa_attention_ref(q, k, v, mask[None, None])
 
 
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q/k/v [B, H, T, D] -> [B, H, T, D], the JAX package's attention
+    oracle: :func:`flash_attention_ref` at positions 0..T-1 in the model's
+    layout, causal (optionally windowed) or unmasked (``window`` ignored).
+    Math in f32, output in the dtype of q."""
+    p = torch.arange(q.shape[2], dtype=torch.int32, device=q.device)
+    out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), p, p, causal=causal,
+                              window=window)
+    return out.transpose(1, 2)
+
+
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, q_pos: torch.Tensor,
                             k_pos: torch.Tensor, out: torch.Tensor,

@@ -48,3 +48,11 @@ def halo_conv_block_tiles_ref(tiles: torch.Tensor,
     for w in weights:
         x = _leaky(conv2d_valid(x, w.float()), leaky)
     return x.to(tiles.dtype)
+
+
+def maxpool2x2_ref(x: torch.Tensor) -> torch.Tensor:
+    """x [N, H, W, C] -> [N, H // 2, W // 2, C]: a VALID 2x2 max, stride 2
+    (a trailing odd row or column is dropped)."""
+    n, h, w, c = x.shape
+    x = x[:, :h // 2 * 2, :w // 2 * 2]
+    return x.reshape(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))

@@ -432,6 +432,22 @@ def slstm_scan(
 slstm_scan.launches = 0
 
 
+def slstm_hidden_states(
+    wx: torch.Tensor,                     # [B, T, 4, H, dh] (x @ w)
+    r: torch.Tensor,                      # [4, H, dh, dh]
+    b: torch.Tensor,                      # [4, H, dh]
+) -> torch.Tensor:
+    """The sLSTM scan's hidden states hs [B, T, H, dh] f32 from the start
+    state (0, 0, 1, 0): :func:`slstm_scan` without its final state,
+    differentiable as it is.  A test-only parity shim of the JAX adapter of
+    the same name; no path of the port calls it.  The kernel runs no padded
+    step, so there is no ``block_t``, and the JAX adapter's Pallas switches
+    (``use_pallas``, ``interpret``) are not taken: CUDA tensors always
+    launch the kernel, CPU tensors take the plain version.  The oracle is
+    :func:`.ref.slstm_scan_ref`."""
+    return slstm_scan(wx, r, b)[0]
+
+
 def _dtensor_scan(wx, r, b, state, out_state, n_cta):
     """:func:`slstm_scan` on DTensors, on each device's shards
     (``_shard.local_call``: batch and heads may stay sharded); the final

@@ -14,11 +14,13 @@ import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.decode_attention import cached_decode_attention, \
+    decode_attention
+from repro_torch.kernels.flash_attention import flash_attention, \
+    mha_attention
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.halo_conv2d import halo_conv_block_tiles
-from repro_torch.kernels.slstm_scan import slstm_scan
+from repro_torch.kernels.slstm_scan import slstm_hidden_states, slstm_scan
 from repro_torch.kernels.slstm_scan import ops as slstm_ops
 from repro_torch.models import model as M
 from repro_torch.serving.cost_model import CostModel, PhaseCost, \
@@ -63,6 +65,44 @@ def test_stream_differs_from_jax_only_in_the_priority_message():
         old, "must be a repro_torch.core.task.Priority")
 
 
+LINT_RULE_COPIES = ["determinism.py", "mirror_sync.py", "terminal_state.py"]
+
+
+@pytest.mark.parametrize("name", LINT_RULE_COPIES)
+def test_lint_rules_differ_from_jax_only_in_their_paths(name):
+    """The port's lint rules are the JAX files with each path literal
+    ``"repro/`` retargeted at ``"repro_torch/``."""
+    jax_src = (REPO / "src" / "repro" / "analysis" / "rules" /
+               name).read_text()
+    port_src = (PORT / "analysis" / "rules" / name).read_text()
+    assert '"repro/' in jax_src
+    assert port_src == jax_src.replace('"repro/', '"repro_torch/')
+
+
+def _without_function(src: str, name: str) -> str:
+    """``src`` with the top-level function ``name`` cut out."""
+    node = next(n for n in ast.parse(src).body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+    lines = src.splitlines(keepends=True)
+    return "".join(lines[:node.lineno - 1] + lines[node.end_lineno:])
+
+
+def test_lint_engine_differs_from_jax_only_in_default_rules():
+    """The port's lint engine is the JAX file but for ``default_rules``:
+    the same catalog without ``pallas-index``, with
+    ``torch-free-boundary`` in the place of ``jax-free-boundary``."""
+    jax_src = (REPO / "src" / "repro" / "analysis" / "engine.py").read_text()
+    port_src = (PORT / "analysis" / "engine.py").read_text()
+    assert port_src != jax_src
+    assert _without_function(port_src, "default_rules") == \
+        _without_function(jax_src, "default_rules")
+    from repro_torch.analysis import default_rules
+    assert [r.name for r in default_rules()] == [
+        "mirror-sync", "dirty-notify", "terminal-state",
+        "determinism-wallclock", "determinism-rng", "determinism-set-iter",
+        "torch-free-boundary"]
+
+
 def test_engine_validates_with_the_stream_boundary():
     """The engine keeps no copy of ``validate_submission``: it is the
     streaming engine's, as in the JAX package."""
@@ -74,12 +114,14 @@ def test_engine_validates_with_the_stream_boundary():
 
 
 def test_runtime_planes_import_no_torch():
-    """The scheduler core, the simulators and the streaming engine run
-    without torch (soak and chaos users do not pay its import)."""
+    """The scheduler core, the simulators, the streaming engine and the
+    lint plane run without torch (soak, chaos and lint users do not pay
+    its import)."""
     code = ("import sys\n"
             "import repro_torch.core, repro_torch.sim, "
             "repro_torch.serving.stream, repro_torch.sim.chaos, "
-            "repro_torch.sim.degrade_storm\n"
+            "repro_torch.sim.degrade_storm, repro_torch.analysis, "
+            "repro_torch.analysis.__main__\n"
             "import repro_torch.serving as s\n"
             "s.StreamingEngine, s.validate_submission\n"
             "bad = sorted(m for m in sys.modules\n"
@@ -233,8 +275,9 @@ def test_kernel_wrappers_do_not_fall_back_off_the_cpu(monkeypatch):
     """Only CPU tensors take the plain version.  Meta tensors (the dry
     run's abstract shards) launch nothing: the wrappers with a meta branch
     return empty meta outputs of the kernel's shapes without running the
-    plain version and count no launch; the halo conv, which has none,
-    raises as any device but CPU and CUDA does."""
+    plain version and count no launch, and so do the model-layout
+    adapters over them; the halo conv, which has none, raises as any
+    device but CPU and CUDA does."""
     _no_plain_versions(monkeypatch)
     q = torch.empty((1, 4, 8), device="meta")
     kv = torch.empty((1, 16, 2, 8), device="meta")
@@ -256,6 +299,15 @@ def test_kernel_wrappers_do_not_fall_back_off_the_cpu(monkeypatch):
     w = torch.empty((3, 3, 3, 5), device="meta")
     with pytest.raises(ValueError, match="needs CUDA"):
         halo_conv_block_tiles(tiles, [w], tile_h=8, tile_w=8)
+    q1 = torch.empty((1, 1, 4, 8), device="meta")
+    out = cached_decode_attention(q1, kv, kv, pos, 3, window=8)
+    assert out.device.type == "meta" and out.shape == q1.shape
+    qm = torch.empty((1, 5, 4, 8), device="meta")
+    for causal in (True, False):
+        out = mha_attention(qm, qm, qm, causal=causal)
+        assert out.device.type == "meta" and out.shape == qm.shape
+    hs = slstm_hidden_states(wx, r, b)
+    assert hs.device.type == "meta" and hs.shape == (1, 3, 2, 8)
     assert decode_attention.launches == 0 and flash_attention.launches == 0
     assert slstm_scan.launches == 0 and halo_conv_block_tiles.launches == 0
 
@@ -349,3 +401,92 @@ def test_slstm_scan_needing_grad_goes_through_its_backward(monkeypatch):
     rc = torch.randn((4, 2, 8, 8)) * 8 ** -0.5
     hs, _ = slstm_scan(wxc, rc, torch.zeros((4, 2, 8)))
     assert type(hs.grad_fn).__name__ == "SLSTMScanFnBackward"
+
+
+# A JAX module without a port file of the same path -> the port's file that
+# stands for it.
+COUNTERPART_FILES = {
+    "kernels/decode_attention/kernel.py":
+        "kernels/decode_attention/csrc/decode_attention.cu",
+    "kernels/flash_attention/kernel.py":
+        "kernels/flash_attention/csrc/flash_attention.cu",
+    "kernels/halo_conv2d/kernel.py": "kernels/halo_conv2d/csrc/halo_conv2d.cu",
+    "kernels/slstm_scan/kernel.py": "kernels/slstm_scan/csrc/slstm_scan.cu",
+    "launch/hlo_analysis.py": "launch/cost_analysis.py",
+}
+# A JAX public function or class that the port's file of the same path (or
+# of COUNTERPART_FILES) lacks -> its equivalents, as (port file, name).
+COUNTERPART_NAMES = {
+    "kernels/decode_attention/kernel.py::decode_attention":
+        [("kernels/decode_attention/ops.py", "decode_attention")],
+    "kernels/flash_attention/kernel.py::flash_attention":
+        [("kernels/flash_attention/ops.py", "flash_attention")],
+    "kernels/halo_conv2d/kernel.py::halo_conv_block_tiles":
+        [("kernels/halo_conv2d/ops.py", "halo_conv_block_tiles")],
+    "kernels/slstm_scan/kernel.py::slstm_scan":
+        [("kernels/slstm_scan/ops.py", "slstm_scan")],
+    "launch/hlo_analysis.py::collective_bytes":
+        [("launch/cost_analysis.py", "collective_stats")],
+    "launch/hlo_analysis.py::roofline_from_compiled":
+        [("launch/cost_analysis.py", "roofline")],
+    "launch/build.py::lower_combo": [("launch/build.py", "build_combo")],
+    "models/sharding.py::tree_shardings":
+        [("models/sharding.py", "tree_specs"),
+         ("models/sharding.py", "distribute_tree")],
+    "analysis/rules/kernel_rules.py::JaxImportRule":
+        [("analysis/rules/kernel_rules.py", "TorchImportRule")],
+}
+# A JAX public function or class with no counterpart in the port -> why.
+NO_COUNTERPART = {
+    "models/layers/common.py::zeros":
+        "a jnp.zeros helper; the port calls torch.zeros(..., device=) inline",
+    "analysis/rules/kernel_rules.py::PallasIndexRule":
+        "lints pl.load/pl.store index tuples; the port has no Pallas",
+}
+
+
+def _public_defs(path: Path) -> set[str]:
+    """Top-level public functions and classes of a source file, read with
+    ``ast`` (never imported)."""
+    return {n.name for n in ast.parse(path.read_text()).body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.ClassDef)) and not n.name.startswith("_")}
+
+
+def test_every_jax_module_and_name_has_a_counterpart():
+    """Every module of ``src/repro/`` has a port file of the same path or
+    one named in COUNTERPART_FILES, and every top-level public function or
+    class a definition of the same name in that file or the counterparts
+    named in COUNTERPART_NAMES, or is one of the names in NO_COUNTERPART;
+    no entry of any of the three is stale."""
+    src = REPO / "src" / "repro"
+    missing, used, absent = [], set(), set()
+    for path in sorted(src.rglob("*.py")):
+        rel = path.relative_to(src).as_posix()
+        port_rel = COUNTERPART_FILES.get(rel, rel)
+        port = PORT / port_rel
+        if not port.exists():
+            missing.append(f"{rel}: no {port_rel}")
+            continue
+        if rel in COUNTERPART_FILES:
+            assert not (PORT / rel).exists(), f"{rel} is ported as itself"
+        have = _public_defs(port) if port.suffix == ".py" else set()
+        for name in sorted(_public_defs(path)):
+            key = f"{rel}::{name}"
+            if name in have:
+                assert key not in COUNTERPART_NAMES, f"stale entry {key}"
+                assert key not in NO_COUNTERPART, f"stale entry {key}"
+                continue
+            if key in NO_COUNTERPART:
+                absent.add(key)
+                continue
+            if key not in COUNTERPART_NAMES:
+                missing.append(key)
+                continue
+            used.add(key)
+            for where, other in COUNTERPART_NAMES[key]:
+                assert other in _public_defs(PORT / where), \
+                    f"{key}: no {other} in {where}"
+    assert not missing, missing
+    assert used == set(COUNTERPART_NAMES)
+    assert absent == set(NO_COUNTERPART)
