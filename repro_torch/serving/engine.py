@@ -28,6 +28,7 @@ as the simulator.  Execution-driving policies are rejected.
 from __future__ import annotations
 
 import itertools
+import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -41,6 +42,7 @@ from ..core.task import LowPriorityRequest, Priority, Task, TaskState
 from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..sim.events import EventQueue
+from ..tracing import span
 from ..training.steps import make_prefill_step, make_serve_step
 from .cost_model import CostModel
 from .stream import validate_submission
@@ -99,6 +101,18 @@ class ServeRequest:                       # a tensor (dataclass __eq__
     completed_at: float = -1.0
     n_preemptions: int = 0
     task: Optional[Task] = None
+    # host seconds of its slots' compute (``_run_compute``), of the current
+    # attempt's share of it, and of the attempts thrown away; and each slot
+    # it ran as (units, reserved seconds, compute seconds)
+    compute_s: float = 0.0
+    attempt_s: float = 0.0
+    wasted_s: float = 0.0
+    slots: list[tuple[int, float, float]] = field(default_factory=list)
+
+    def discard_attempt(self) -> None:
+        """The current attempt's compute was thrown away."""
+        self.wasted_s += self.attempt_s
+        self.attempt_s = 0.0
 
 
 class _ServingClient(DispatchClient):
@@ -127,6 +141,7 @@ class _ServingClient(DispatchClient):
         if eng.lose_work:
             eng._decode_state.pop(req.rid, None)
             req.tokens_out = []
+            req.discard_attempt()
 
     def on_admit_fail(self, task: Task) -> None:
         eng = self.eng
@@ -148,6 +163,7 @@ class _ServingClient(DispatchClient):
         req.state = "preempted"
         eng._decode_state.pop(req.rid, None)
         req.tokens_out = []
+        req.discard_attempt()
 
 
 class PreemptiveServingEngine:
@@ -256,50 +272,72 @@ class PreemptiveServingEngine:
         return lp
 
     def _admit_lp_batch(self, reqs: list[ServeRequest]) -> None:
-        now = self.q.now
-        lps = [self._make_lp(req, now) for req in reqs]
-        self.dispatcher.submit_lp_batch(lps)
+        with span(lambda: f"engine.admit:n={len(reqs)}"):
+            now = self.q.now
+            lps = [self._make_lp(req, now) for req in reqs]
+            self.dispatcher.submit_lp_batch(lps)
 
     def _admit(self, req: ServeRequest) -> None:
-        now = self.q.now
-        if req.priority == Priority.HIGH:
-            task = Task(priority=req.priority, source_device=req.home_slice,
-                        deadline=req.deadline, frame_id=req.rid,
-                        task_type=req.task_type)
-            req.task = task
-            self._by_task[task] = req
-            self.metrics.hp_generated += 1
-            self.dispatcher.submit_hp(task)
-        else:
-            self.dispatcher.submit_lp(self._make_lp(req, now))
+        with span(lambda: f"engine.admit:rid={req.rid}"):
+            now = self.q.now
+            if req.priority == Priority.HIGH:
+                task = Task(priority=req.priority,
+                            source_device=req.home_slice,
+                            deadline=req.deadline, frame_id=req.rid,
+                            task_type=req.task_type)
+                req.task = task
+                self._by_task[task] = req
+                self.metrics.hp_generated += 1
+                self.dispatcher.submit_hp(task)
+            else:
+                self.dispatcher.submit_lp(self._make_lp(req, now))
 
     # ------------------------------------------------------------------ #
     # Execution (real compute at virtual-time slot boundaries)            #
     # ------------------------------------------------------------------ #
     def _run_compute(self, task: Task) -> None:
-        """The reserved slot began: run the request's actual compute."""
+        """The reserved slot began: run the request's actual compute.  Its
+        host seconds, to the last token read, go to ``compute_s`` and, with
+        the slot's units and reservation, to ``slots``."""
+        t0 = time.perf_counter()
         req = self._by_task[task]
-        req.state = "running"
-        if req.priority == Priority.HIGH:
-            nxt, _ = self._prefill(self.params, {"tokens": req.prompt})
-            req.tokens_out = [int(nxt[0])]
-        else:
-            # run prefill now (or resume), decode tokens as the slot elapses
-            if req.rid in self._decode_state and not self.lose_work:
-                caches, last, pos = self._decode_state[req.rid]
+        with span(lambda: f"engine.slot:rid={req.rid}:units={task.cores}"
+                  f":reserved_us={round((task.t_end - task.t_start) * 1e6)}"):
+            req.state = "running"
+            if req.priority == Priority.HIGH:
+                with span(lambda: f"engine.prefill:T={req.prompt.shape[1]}"):
+                    nxt, _ = self._prefill(self.params,
+                                           {"tokens": req.prompt})
+                    with span("engine.read"):
+                        req.tokens_out = [int(nxt[0])]
             else:
-                req.tokens_out = []
-                nxt, caches = self._prefill(self.params,
-                                            {"tokens": req.prompt})
-                last = nxt[:, None]
-                pos = req.prompt.shape[1]
-                req.tokens_out.append(int(nxt[0]))
-            remaining = req.max_new_tokens - len(req.tokens_out)
-            for _ in range(remaining):
-                last, caches = self._serve(self.params, caches, last, pos)
-                req.tokens_out.append(int(last[0, 0]))
-                pos += 1
-            self._decode_state[req.rid] = (caches, last, pos)
+                # run prefill now (or resume), decode tokens as the slot
+                # elapses
+                if req.rid in self._decode_state and not self.lose_work:
+                    caches, last, pos = self._decode_state[req.rid]
+                else:
+                    req.tokens_out = []
+                    with span(lambda: "engine.prefill:T="
+                              f"{req.prompt.shape[1]}"):
+                        nxt, caches = self._prefill(self.params,
+                                                    {"tokens": req.prompt})
+                        last = nxt[:, None]
+                        pos = req.prompt.shape[1]
+                        with span("engine.read"):
+                            req.tokens_out.append(int(nxt[0]))
+                remaining = req.max_new_tokens - len(req.tokens_out)
+                for _ in range(remaining):
+                    with span(lambda: f"engine.decode:pos={pos}"):
+                        last, caches = self._serve(self.params, caches, last,
+                                                   pos)
+                        with span("engine.read"):
+                            req.tokens_out.append(int(last[0, 0]))
+                    pos += 1
+                self._decode_state[req.rid] = (caches, last, pos)
+        dt = time.perf_counter() - t0
+        req.compute_s += dt
+        req.attempt_s += dt
+        req.slots.append((task.cores, task.t_end - task.t_start, dt))
 
     def _finish_request(self, task: Task) -> None:
         req = self._by_task[task]
@@ -331,4 +369,9 @@ class PreemptiveServingEngine:
                 if req.task is not None and \
                         req.task.state == TaskState.FAILED:
                     req.state = "failed"
+        if until is None:
+            # the queue ran dry: a request not done never finishes its attempt
+            for req in self._by_task.values():
+                if req.state != "done":
+                    req.discard_attempt()
         return self.metrics

@@ -17,6 +17,7 @@ from ..device import resolve_device
 from ..kernels import _shard
 from ..models import model as M
 from ..models.config import ModelConfig
+from ..tracing import span
 from .optimizer import AdamWConfig, adamw_update, init_opt_state, \
     tree_leaves
 
@@ -95,14 +96,20 @@ def make_train_step(cfg: ModelConfig, opt: Optional[AdamWConfig] = None, *,
     then one AdamW step in place (the same dicts come back; metrics are
     device scalars).  ``batch`` holds numpy arrays or tensors
     (``train_batches`` gives numpy); params and optimizer state live on
-    ``device``."""
+    ``device``.  Under a profiler the two phases are spans,
+    ``train.grads`` and ``train.optimizer``; the optimizer's is also timed on
+    the card by CUDA events there."""
     opt = opt or AdamWConfig()
-    resolve_device(device)
+    timed = resolve_device(device).type == "cuda"
 
     def train_step(params, opt_state, batch):
-        loss, parts, grads = loss_and_grads(params, cfg, batch, remat=remat,
-                                            moe_group_size=moe_group_size)
-        params, opt_state, om = adamw_update(opt, params, grads, opt_state)
+        with span("train.grads"):
+            loss, parts, grads = loss_and_grads(
+                params, cfg, batch, remat=remat,
+                moe_group_size=moe_group_size)
+        with span("train.optimizer", device=timed):
+            params, opt_state, om = adamw_update(opt, params, grads,
+                                                 opt_state)
         return params, opt_state, {"loss": loss, **parts, **om}
 
     return train_step
