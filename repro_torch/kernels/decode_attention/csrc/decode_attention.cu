@@ -26,7 +26,10 @@
 //      a warp vote gives the valid slots, compacted in order.  Validity comes
 //      from the stored positions only, never from slot order (rotating
 //      caches exist): 0 <= stored <= pos and, with a window,
-//      stored > pos - window.
+//      stored > pos - window.  The current position is the argument
+//      `pos`, or (kPosAt) the int32 that `pos_at` points to, read on the
+//      card there, so that a launch captured once in a CUDA graph replays
+//      at every position; this test is its only use.
 //   2. a chunk with no valid slot loads no K/V and writes the partial
 //      (m = -inf, l = 0).  Otherwise the valid K rows, then the valid V rows,
 //      are copied into shared memory with 16-byte cp.async, every copy
@@ -157,13 +160,14 @@ __host__ __device__ __forceinline__ Layout layout(int G, int D, int chunk,
   return L;
 }
 
-template <typename T>
+template <typename T, bool kPosAt>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ positions,
                         T* __restrict__ out, float* __restrict__ ws,
-                        int* __restrict__ counters, int S, int H, int KV,
+                        int* __restrict__ counters,
+                        const int* __restrict__ pos_at, int S, int H, int KV,
                         int D, int chunk, int pos, int window, float scale,
                         int vec_ok) {
   constexpr int VEC = 16 / sizeof(T);
@@ -196,9 +200,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // 1. validity of the chunk's slots; q staged in f32, zero past D
   int ok = 0;
   if (tid < n) {
+    // read here, by the threads that vote: the same read at the kernel's
+    // top compiled to a kernel 1.5x slower on the H100 (43 against 29 us a
+    // launch at qwen2-0.5b's heads over 8193 slots)
+    const int p = kPosAt ? __ldg(pos_at) : pos;
     const int stored = positions[(size_t)b * S + s0 + tid];
-    ok = stored >= 0 && stored <= pos &&
-         (window <= 0 || stored > pos - window);
+    ok = stored >= 0 && stored <= p && (window <= 0 || stored > p - window);
   }
   const unsigned vote = __ballot_sync(0xffffffffu, ok);
   if (warp < 2 && lane == 0) int_s[warp] = (int)vote;
@@ -385,26 +392,27 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* positions, void* out, void* ws, void* counters,
-                   int B, int S, int H, int KV, int D, int chunk, int n_split,
-                   int pos, int window, cudaStream_t stream) {
+                   const void* pos_at, int B, int S, int H, int KV, int D,
+                   int chunk, int n_split, int pos, int window,
+                   cudaStream_t stream) {
+  auto kernel = pos_at != nullptr ? decode_attention_kernel<T, true>
+                                  : decode_attention_kernel<T, false>;
   const size_t smem = layout(H / KV, D, chunk, sizeof(T)).total;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        decode_attention_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const int vec_ok = (D * sizeof(T)) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(v) % 16 == 0;
   const float scale = 1.0f / sqrtf((float)D);
-  decode_attention_kernel<T><<<dim3(n_split, KV, B), kThreads, smem,
-                               stream>>>(
+  kernel<<<dim3(n_split, KV, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(positions),
       static_cast<T*>(out), static_cast<float*>(ws),
-      static_cast<int*>(counters), S, H, KV, D, chunk, pos, window, scale,
-      vec_ok);
+      static_cast<int*>(counters), static_cast<const int*>(pos_at), S, H,
+      KV, D, chunk, pos, window, scale, vec_ok);
   return cudaGetLastError();
 }
 
@@ -414,13 +422,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // positions [B, S] int32, all contiguous on the current device.  The slots
 // are cut into n_split chunks of `chunk` (the last one ragged): n_split =
 // ceil(S / chunk).  ws is f32 [B, KV, n_split, H / KV, D + 2] (each head's
-// acc[D], m, l) and counters int32 [B * KV], all 0.
+// acc[D], m, l) and counters int32 [B * KV], all 0.  The current position
+// is `pos`, or, where pos_at is not null, the int32 it points to on the
+// current device, read there (`pos` is then unused): a launch captured in a
+// CUDA graph serves whatever position is written there before each replay.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* positions,
                                        void* out, void* ws, void* counters,
-                                       int B, int S, int H, int KV, int D,
-                                       int chunk, int n_split, int pos,
-                                       int window, int dtype, void* stream) {
+                                       const void* pos_at, int B, int S,
+                                       int H, int KV, int D, int chunk,
+                                       int n_split, int pos, int window,
+                                       int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || D < 1 || chunk < 1 ||
       chunk > kMaxChunk || n_split != (S + chunk - 1) / chunk ||
@@ -428,12 +440,13 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      return (int)launch<float>(q, k, v, positions, out, ws, counters, B, S,
-                                H, KV, D, chunk, n_split, pos, window, st);
+      return (int)launch<float>(q, k, v, positions, out, ws, counters,
+                                pos_at, B, S, H, KV, D, chunk, n_split, pos,
+                                window, st);
     case 1:
       return (int)launch<__nv_bfloat16>(q, k, v, positions, out, ws,
-                                        counters, B, S, H, KV, D, chunk,
-                                        n_split, pos, window, st);
+                                        counters, pos_at, B, S, H, KV, D,
+                                        chunk, n_split, pos, window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

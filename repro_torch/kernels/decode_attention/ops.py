@@ -2,8 +2,12 @@
 
 CPU tensors take the plain version; CUDA tensors launch the kernel or
 raise.  ``decode_attention.launches`` counts kernel launches: one per call,
-the cross-chunk combine included.  The kernel has no backward: on inputs
-off the CPU that require grad (grad mode on) the wrapper raises.
+the cross-chunk combine included.  The current position is a host int,
+passed by value, or a 0-d int32 tensor on the card, whose address the
+kernel gets and which it reads there: a launch captured in a CUDA graph
+then serves every position written into that tensor.  The kernel has no
+backward: on inputs off the CPU that require grad (grad mode on) the
+wrapper raises.
 
 The kernel cuts the cache's S slots into ``n_split`` chunks, one CTA each,
 and its last CTA per (batch, KV head) merges their partials from an f32
@@ -27,9 +31,10 @@ MAX_CHUNK = 64          # slots a CTA takes at most (kMaxChunk in the kernel)
 SM_COUNT = 132          # H100 SXM
 MIN_COUNTERS = 1024
 
-# decode_attention_launch: q, k, v, positions, out, ws, counters; B, S, H,
-# KV, D, chunk, n_split, pos, window, dtype; stream
-ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# decode_attention_launch: q, k, v, positions, out, ws, counters, pos_at
+# (null: the position is pos); B, S, H, KV, D, chunk, n_split, pos, window,
+# dtype; stream
+ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 _launch_fn = None
 _counters: dict[int, torch.Tensor] = {}
@@ -89,8 +94,8 @@ def decode_attention(
     k_cache: torch.Tensor,      # [B, S, KV, D]
     v_cache: torch.Tensor,
     positions: torch.Tensor,    # [B, S] int32 (-1 = empty slot)
-    pos: int,                   # current absolute position
-    *,
+    pos,                        # current absolute position: host int or
+    *,                          # 0-d int32 tensor on q's device
     window: int = 0,
 ) -> torch.Tensor:
     """One-token GQA attention over a position-tracked cache -> [B, H, D].
@@ -114,11 +119,13 @@ def decode_attention(
         _shard.meta_launch(NAME, 4.0 * h * d * valid, _shard.nbytes(
             q, positions, q) + 2 * valid * kv * d * k_cache.element_size())
         return torch.empty_like(q)
+    at = isinstance(pos, torch.Tensor)
     _build.check_inputs(
-        NAME, (q, k_cache, v_cache), (positions,),
+        NAME, (q, k_cache, v_cache), (positions, pos) if at else (positions,),
         shapes_ok=(k_cache.shape == (b, s, kv, d)
                    and v_cache.shape == k_cache.shape
-                   and positions.shape == (b, s) and h % kv == 0),
+                   and positions.shape == (b, s) and h % kv == 0
+                   and (not at or pos.numel() == 1)),
         head_dim=d)
     plan = plan_split(b, s, h, kv, d)
     out = torch.empty_like(q)
@@ -129,8 +136,9 @@ def decode_attention(
         err = _launcher()(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             positions.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            counters.data_ptr(), b, s, h, kv, d, plan.chunk, plan.n_split, int(pos), int(window),
-            _build.DTYPE_CODES[q.dtype],
+            counters.data_ptr(), pos.data_ptr() if at else None, b, s, h,
+            kv, d, plan.chunk, plan.n_split, 0 if at else int(pos),
+            int(window), _build.DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, NAME)
     decode_attention.launches += 1

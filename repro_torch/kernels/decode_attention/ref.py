@@ -13,8 +13,8 @@ def decode_attention_ref(
     k_cache: torch.Tensor,      # [B, S, KV, D]
     v_cache: torch.Tensor,
     positions: torch.Tensor,    # [B, S] absolute stored positions (-1 empty)
-    pos: int,                   # current absolute position
-    *,
+    pos,                        # current absolute position: host int or
+    *,                          # 0-d int tensor
     window: int = 0,
 ) -> torch.Tensor:
     """-> [B, H, D]; a slot is valid when 0 <= stored <= pos and, with a

@@ -34,7 +34,8 @@ class LayerCtx:
     positions: torch.Tensor               # [T] int32 absolute positions
     causal: bool = True
     window: int = 0                       # sliding window (0 = full)
-    pos: Optional[int] = None             # decode: current position (host)
+    pos: Optional[int | torch.Tensor] = None  # decode: current position,
+    #                                             host int or 0-d int32 tensor
     enc_out: Optional[torch.Tensor] = None  # encoder output for cross-attn
     moe_group_size: int = 256
 

@@ -95,12 +95,35 @@ def kv_cache_axes() -> dict:
     }
 
 
-def _write_slot(cache_len: int, pos: int, window: int) -> int:
+def _write_slot(cache_len: int, pos, window: int):
     """The slot a decode token writes.  Clamped into the cache like
     ``jax.lax.dynamic_update_slice``: with no window and ``pos >= cache_len``
-    the last slot is overwritten."""
+    the last slot is overwritten.  ``pos`` a host int gives an int; a 0-d
+    int tensor gives the slot as a [1] int64 index on its device."""
     slot = pos % cache_len if window > 0 else pos
+    if isinstance(slot, torch.Tensor):
+        return slot.clamp(0, cache_len - 1).reshape(1).long()
     return min(max(slot, 0), cache_len - 1)
+
+
+def _write_token(cache: dict, pos, window: int, **values) -> None:
+    """Write one decode token's ``values`` (each [B, 1, ...], by cache leaf
+    name) and its position into the cache, in place, at the slot
+    :func:`_write_slot` gives.  A tensor ``pos`` is read on the device: the
+    writes go to a device index (``index_copy_``), never through the
+    host."""
+    slot = _write_slot(cache["positions"].shape[1], pos, window)
+    if isinstance(pos, torch.Tensor):
+        for name, val in values.items():
+            cache[name].index_copy_(1, slot, val.to(cache[name].dtype))
+        b = cache["positions"].shape[0]
+        cache["positions"].index_copy_(
+            1, slot, pos.to(torch.int32).reshape(1, 1).expand(b, 1)
+            .contiguous())
+        return
+    for name, val in values.items():
+        cache[name][:, slot] = val[:, 0]
+    cache["positions"][:, slot].fill_(pos)
 
 
 # --------------------------------------------------------------------------- #
@@ -143,8 +166,8 @@ def attn_apply(
     causal: bool = True,
     window: int = 0,
     cache: Optional[dict] = None,       # decode: attend over cache
-    pos: Optional[int] = None,          # decode: current position, host int
-) -> tuple[torch.Tensor, Optional[dict]]:
+    pos=None,                           # decode: current position, a host
+) -> tuple[torch.Tensor, Optional[dict]]:   # int or a 0-d int32 tensor
     """-> (attention output [B, T, H, hd], cache written in place or None)."""
     hd = cfg.resolved_head_dim
     q = _project(x, params["wq"], params.get("bq"))
@@ -162,12 +185,8 @@ def attn_apply(
     if x.shape[1] != 1 or pos is None:
         raise ValueError("cache decode takes one token and its position "
                          f"(got T={x.shape[1]}, pos={pos})")
-    cache_len = cache["k"].shape[1]
     k_new, v_new = project_kv(params, x, positions, cfg)
-    slot = _write_slot(cache_len, pos, window)
-    cache["k"][:, slot] = k_new[:, 0]
-    cache["v"][:, slot] = v_new[:, 0]
-    cache["positions"][:, slot].fill_(pos)
+    _write_token(cache, pos, window, k=k_new, v=v_new)
     out = decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
                            cache["positions"], pos, window=window)
     return out[:, None], cache

@@ -22,7 +22,7 @@ import torch
 
 from ...kernels.flash_attention import flash_attention
 from ..config import ModelConfig
-from .attention import _project, _write_slot
+from .attention import _project, _write_token
 from .common import apply_rope, dense_init, masked_softmax, pad_last, \
     reshape, rmsnorm, rmsnorm_axes, rmsnorm_init, rope_cos_sin
 
@@ -155,10 +155,7 @@ def mla_apply(
         raise ValueError("cache decode takes one token and its position "
                          f"(got T={t}, pos={pos})")
     c_new, kr_new = _compress(params, x, cfg, positions)
-    slot = _write_slot(cache["c_kv"].shape[1], pos, window)
-    cache["c_kv"][:, slot] = c_new[:, 0]
-    cache["k_rope"][:, slot] = kr_new[:, 0]
-    cache["positions"][:, slot].fill_(pos)
+    _write_token(cache, pos, window, c_kv=c_new, k_rope=kr_new)
     c_kv, k_rope, stored = cache["c_kv"], cache["k_rope"], cache["positions"]
     scale = (nd + rd) ** -0.5
     q_abs = torch.einsum("bthk,rhk->bthr", q_nope, params["wuk"])

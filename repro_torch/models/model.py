@@ -355,18 +355,25 @@ def _scatter_tail(cache: dict, seqs: dict, positions: torch.Tensor,
 
 
 def decode_step(params: Params, cfg: ModelConfig, caches: Caches,
-                token: torch.Tensor, pos: int, *,
+                token: torch.Tensor, pos: int | torch.Tensor, *,
                 moe_group_size: int = 256) -> tuple[torch.Tensor, Caches]:
     """One-token decode against the caches (written in place).
 
-    token [B, 1] int, pos the current absolute position as a host int (a
-    decoder-only modality model's prefix counts).  A cross layer reads the
-    encoder K/V that prefill left in its cache.  Returns (logits [B, 1, V],
-    caches).
+    token [B, 1] int, pos the current absolute position (a decoder-only
+    modality model's prefix counts): a host int, or a 0-d int32 tensor on
+    the caches' device, which the step reads there (the positions, the
+    cache slot and the decode kernel's mask), so that one CUDA graph of
+    the step serves every position.  A cross layer reads the encoder K/V
+    that prefill left in its cache.  Returns (logits [B, 1, V], caches).
     """
-    pos = int(pos)
     x = embed_tokens(params, cfg, token)
-    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(device=x.device, dtype=torch.int32)
+        positions = pos.reshape(1)
+    else:
+        pos = int(pos)
+        positions = torch.full((1,), pos, dtype=torch.int32,
+                               device=x.device)
     ctx = LayerCtx(cfg=cfg, positions=positions, causal=True,
                    window=cfg.sliding_window, pos=pos,
                    moe_group_size=moe_group_size)

@@ -85,9 +85,10 @@ def measure_cost_model(
     """Time the real prefill and serve steps on ``device``.
 
     Both steps run once untimed first (on a card that first call builds
-    and loads the kernels).  Each timed call is fenced by
-    ``torch.cuda.synchronize`` on CUDA, so a rep is the step's full
-    latency, not its enqueue.  Model-parallel degree on one device is
+    and loads the kernels, and captures the steps' CUDA graphs where they
+    engage, so that the timed reps replay them).  Each timed call is
+    fenced by ``torch.cuda.synchronize`` on CUDA, so a rep is the step's
+    full latency, not its enqueue.  Model-parallel degree on one device is
     emulated by its compute split: the measured time anchors degree 2 and
     every doubling multiplies it by the paper's 2-core:4-core ratio of
     16.862:2*11.611.
@@ -140,8 +141,12 @@ def measure_cost_model(
             ts.append(time.perf_counter() - t0)
         return float(np.mean(ts)), float(np.std(ts))
 
-    p_mean, p_std = timeit(pre, params, batch_d)
+    # decode first, on the first prefill's caches, which are then let go:
+    # where the steps replay CUDA graphs, a prefill replay copies out a
+    # cache tree that is still held before it overwrites it
     d_mean, d_std = timeit(srv, params, caches, nxt[:, None], prompt_len)
+    del caches
+    p_mean, p_std = timeit(pre, params, batch_d)
 
     # paper-calibrated parallel efficiency: every doubling of the degree
     # multiplies the step time by t(4) / t(2) = 11.611 / 16.862; the

@@ -41,6 +41,7 @@ from ..core.profiles import WorkloadSpec
 from ..core.task import LowPriorityRequest, Priority, Task, TaskState
 from ..device import resolve_device
 from ..models.config import ModelConfig
+from .. import tracing
 from ..sim.events import EventQueue
 from ..tracing import span
 from ..training.steps import make_prefill_step, make_serve_step
@@ -108,6 +109,10 @@ class ServeRequest:                       # a tensor (dataclass __eq__
     attempt_s: float = 0.0
     wasted_s: float = 0.0
     slots: list[tuple[int, float, float]] = field(default_factory=list)
+    # prefill and decode steps it ran, and how many of them were replayed
+    # from a CUDA graph (``training/graphs.py``)
+    steps: int = 0
+    replays: int = 0
 
     def discard_attempt(self) -> None:
         """The current attempt's compute was thrown away."""
@@ -295,6 +300,16 @@ class PreemptiveServingEngine:
     # ------------------------------------------------------------------ #
     # Execution (real compute at virtual-time slot boundaries)            #
     # ------------------------------------------------------------------ #
+    @staticmethod
+    def _step(req: ServeRequest, step, *args):
+        """``step(*args)``, a prefill or decode step, counted on ``req``: a
+        replay where it moved ``tracing.replays``."""
+        before = tracing.replays
+        out = step(*args)
+        req.steps += 1
+        req.replays += int(tracing.replays != before)
+        return out
+
     def _run_compute(self, task: Task) -> None:
         """The reserved slot began: run the request's actual compute.  Its
         host seconds, to the last token read, go to ``compute_s`` and, with
@@ -306,8 +321,8 @@ class PreemptiveServingEngine:
             req.state = "running"
             if req.priority == Priority.HIGH:
                 with span(lambda: f"engine.prefill:T={req.prompt.shape[1]}"):
-                    nxt, _ = self._prefill(self.params,
-                                           {"tokens": req.prompt})
+                    nxt, _ = self._step(req, self._prefill, self.params,
+                                        {"tokens": req.prompt})
                     with span("engine.read"):
                         req.tokens_out = [int(nxt[0])]
             else:
@@ -319,8 +334,9 @@ class PreemptiveServingEngine:
                     req.tokens_out = []
                     with span(lambda: "engine.prefill:T="
                               f"{req.prompt.shape[1]}"):
-                        nxt, caches = self._prefill(self.params,
-                                                    {"tokens": req.prompt})
+                        nxt, caches = self._step(req, self._prefill,
+                                                 self.params,
+                                                 {"tokens": req.prompt})
                         last = nxt[:, None]
                         pos = req.prompt.shape[1]
                         with span("engine.read"):
@@ -328,12 +344,14 @@ class PreemptiveServingEngine:
                 remaining = req.max_new_tokens - len(req.tokens_out)
                 for _ in range(remaining):
                     with span(lambda: f"engine.decode:pos={pos}"):
-                        last, caches = self._serve(self.params, caches, last,
-                                                   pos)
+                        last, caches = self._step(req, self._serve,
+                                                  self.params, caches, last,
+                                                  pos)
                         with span("engine.read"):
                             req.tokens_out.append(int(last[0, 0]))
                     pos += 1
-                self._decode_state[req.rid] = (caches, last, pos)
+                if not self.lose_work:    # a preempted attempt resumes here
+                    self._decode_state[req.rid] = (caches, last, pos)
         dt = time.perf_counter() - t0
         req.compute_s += dt
         req.attempt_s += dt

@@ -10,6 +10,10 @@ no name (pass a callable to defer it), opens no range and records no event.
 
 Every name starts with ``engine.`` (the serving engine) or ``train.`` (the
 train step).
+
+:data:`replays` counts the CUDA-graph replays of the serving steps
+(``training/graphs.py``), with or without a profiler: a caller that reads
+it before and after a step knows whether the step was replayed.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 
 MAX_PAIRS = 4096          # CUDA event pairs kept; the oldest go first
+
+replays = 0               # serving steps replayed from a CUDA graph
 
 _OFF = contextlib.nullcontext()
 _pairs: collections.deque = collections.deque(maxlen=MAX_PAIRS)

@@ -18,6 +18,7 @@ from ..kernels import _shard
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..tracing import span
+from . import graphs
 from .optimizer import AdamWConfig, adamw_update, init_opt_state, \
     tree_leaves
 
@@ -149,31 +150,60 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int, *,
     """The prompt's prefill: ``batch`` as ``model.forward`` takes it (tokens,
     and a modality model's ``modality_emb``), moved to the device; the
     caches it fills are fresh ones unless ``caches`` are given (the dry
-    run gives them sharded)."""
+    run gives them sharded).  Where the CUDA graphs engage (``graphs.py``:
+    a config they take, plain CUDA tensors, no ``caches`` given), each
+    prompt shape's prefill is captured once and replayed, filling a cache
+    tree that stays resident for these weights."""
     dev = resolve_device(device)
+    graphed = graphs.supported(cfg)
 
-    @torch.inference_mode()
-    def prefill_step(params, batch, caches=None):
-        batch = {name: _to(val, dev) for name, val in batch.items()}
+    def run(params, batch, caches):
         logits, caches = M.prefill(params, cfg, batch, cache_len,
                                    moe_group_size=moe_group_size,
                                    caches=caches)
         next_token = _greedy(logits[:, -1, : cfg.vocab_size])
         return next_token.to(torch.int32), caches
 
+    @torch.inference_mode()
+    def prefill_step(params, batch, caches=None):
+        batch = {name: _to(val, dev) for name, val in batch.items()}
+        if graphed and caches is None and list(batch) == ["tokens"]:
+            out = graphs.prefill(
+                params, cfg, batch["tokens"], cache_len,
+                lambda tokens, tree: run(params, {"tokens": tokens},
+                                         tree)[0])
+            if out is not None:
+                return out
+        return run(params, batch, caches)
+
     return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig, *, moe_group_size: int = 256,
                     device: str | torch.device = "cuda") -> Callable:
-    """ONE new token against the KV caches (the decode shapes)."""
+    """ONE new token against the KV caches (the decode shapes).  Where the
+    CUDA graphs engage (``graphs.py``: the caches the graphed prefill of
+    these weights last handed out, a host-int position), one captured step
+    is replayed at every position."""
     dev = resolve_device(device)
+    graphed = graphs.supported(cfg)
+
+    def run(params, caches, token, pos):
+        logits, _ = M.decode_step(params, cfg, caches, token, pos,
+                                  moe_group_size=moe_group_size)
+        next_token = _greedy(logits[:, -1, : cfg.vocab_size])
+        return next_token.to(torch.int32)[:, None]
 
     @torch.inference_mode()
-    def serve_step(params, caches, token, pos: int):
-        logits, caches = M.decode_step(params, cfg, caches, _to(token, dev),
-                                       pos, moe_group_size=moe_group_size)
-        next_token = _greedy(logits[:, -1, : cfg.vocab_size])
-        return next_token.to(torch.int32)[:, None], caches
+    def serve_step(params, caches, token, pos):
+        token = _to(token, dev)
+        nxt = None
+        if graphed:
+            nxt = graphs.decode(
+                params, cfg, caches, token, pos,
+                lambda tok, at, tree: run(params, tree, tok, at))
+        if nxt is None:
+            nxt = run(params, caches, token, pos)
+        return nxt, caches
 
     return serve_step

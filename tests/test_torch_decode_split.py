@@ -58,3 +58,16 @@ def test_launcher_argtypes_match_the_c_entry_point():
     kinds = [ctypes.c_void_p if "*" in a else ctypes.c_int
              for a in decl.split(",")]
     assert kinds == ops.ARGTYPES
+
+
+def test_launcher_at_argtypes_match_the_c_entry_point():
+    """The position read on the card: the one entry point takes ``pos_at``
+    as the pointer after ``counters`` and still takes ``pos`` by value (the
+    wrapper passes a tensor's address, or null and the host int)."""
+    src = KERNEL_SRC.read_text()
+    decl = re.search(r'extern "C" int decode_attention_launch\((.*?)\)',
+                     src, re.S).group(1)
+    args = [a.split()[-1].lstrip("*") for a in decl.split(",")]
+    assert args[6:9] == ["counters", "pos_at", "B"]
+    assert ops.ARGTYPES[7] == ctypes.c_void_p and "pos" in args
+    assert "decode_attention_launch_at" not in src
